@@ -1,19 +1,10 @@
-"""Large-topology benchmark: compile time + honest runtime (VERDICT r1
-item 8 / r2 item 7).
+"""Large-topology benchmark: compile time + runtime of the scan engine on
+big chains, so compile-time regressions are visible.
 
-Two engines per config:
-
-* the XLA scan path (``make_vec_env``) — trace+compile wall time recorded
-  next to the honest per-step runtime (post-fetch slope protocol, see
-  bench.py) so compile-time regressions are visible;
-* the dense Pallas collect kernel
-  (``ops/supplychain_pallas_dense.py``, 'random' mode — obs emitted every
-  step, in-kernel PRNG + auto-reset): per-step time from the slope over
-  episodes-per-dispatch, plus a compiled on-device parity check of the
-  table-driven 'actions' mode against the scan engine at a reduced shape
-  (the pre-gathered parity tables scale with S*N*P*Dmax*B).
-
-Prints one JSON object.  ``python benchmarks/large_topologies.py``.
+The scan path (``make_vec_env``): trace+compile wall time recorded next to
+the per-step runtime (post-fetch slope over 1x/2x scan lengths, see
+bench.py).  Prints one JSON object naming the device.
+``python benchmarks/large_topologies.py`` (needs a GPU).
 """
 from __future__ import annotations
 
@@ -81,112 +72,23 @@ def _bench(cc, B, base_steps):
     }
 
 
-def _bench_dense(cc, B, T, lane_tile, cc_parity):
-    """Dense Pallas collect kernel: compile time, per-step slope over
-    episodes-per-dispatch, and compiled 'actions'-mode parity vs the scan
-    engine at a reduced shape.
-
-    ``cc_parity`` is the SAME preset compiled at a SHORT horizon (Tp=60):
-    the parity must compare a Tp-episode kernel against a Tp-configured
-    scan engine, because the remaining-time observation feature normalizes
-    by the episode length — the r4 artifact's first cut ran the Tp=60
-    kernel against the T=360 chain and got an identical spurious 1.64
-    error on exactly that obs row in all three topologies (rewards agreed
-    to 2e-7).  Both collect-kernel builders now reject T != cc.T.  The
-    reduced shapes matter: the pre-gathered parity tables scale with
-    S*N*P*Dmax*B (~9.6 GB at the full horizon on the [5,4,7,10]x4 chain).
-    The check runs before the timing loops, like bench.py's fused
-    sections."""
-    import jax
-    import jax.numpy as jnp
-    from gym_supplychain_tpu.core.step import make_supplychain_kernels
-    from gym_supplychain_tpu.ops.supplychain_pallas_dense import (
-        make_supplychain_dense_collect_pallas)
-
-    def timed(fn, s):
-        t0 = time.perf_counter()
-        float(fn(s))
-        return time.perf_counter() - t0
-
-    # compiled parity: 'actions' mode vs the scan engine on-device,
-    # short-horizon chain (see docstring), reduced batch
-    ccp = cc_parity
-    Tp, Bp = ccp.T, 256
-    assert (ccp.N, ccp.P, ccp.A) == (cc.N, cc.P, cc.A)
-    par = make_supplychain_dense_collect_pallas(
-        ccp, Tp, Bp, mode="actions", lane_tile=min(lane_tile, Bp))
-    reset_fn, step_fn, obs_fn = make_supplychain_kernels(ccp)
-
-    @jax.jit
-    def parity(seed):
-        kd, kl, ka = jax.random.split(jax.random.PRNGKey(seed), 3)
-        demands = jax.random.randint(
-            kd, (Tp + 1, ccp.R, ccp.P, Bp), 0, 25).astype(jnp.float32)
-        lt = (jax.random.randint(kl, (Tp, ccp.K, Bp), 1, ccp.Lmax + 1,
-                                 jnp.int32)
-              if ccp.stochastic_leadtimes else None)
-        actions = jax.random.uniform(ka, (Tp, ccp.A, Bp), jnp.float32,
-                                     -1.0, 1.0)
-        pal_obs, pal_rew = (par(demands[:Tp], lt, actions)
-                            if ccp.stochastic_leadtimes
-                            else par(demands[:Tp], actions))
-        st = reset_fn(demands, lt, Bp)
-
-        def body(carry, a):
-            st, obs = carry
-            st, o = step_fn(st, a)
-            return (st, o.obs), (obs, o.reward)
-
-        (_, _), (ref_obs, ref_rew) = jax.lax.scan(
-            body, (st, obs_fn(st)), actions)
-        return (jnp.abs(pal_obs - ref_obs).max(),
-                jnp.abs(pal_rew - ref_rew).max(), jnp.abs(ref_rew).max())
-
-    obs_err, rew_err, scale = (float(x) for x in jax.device_get(parity(0)))
-    rel = rew_err / scale if scale else 0.0
-
-    med = {}
-    compile_s = None
-    for eps in (1, 2):
-        run = make_supplychain_dense_collect_pallas(
-            cc, T, B, mode="random", episodes=eps, lane_tile=lane_tile)
-
-        @jax.jit
-        def fn(seed, run=run):
-            obs, rew = run(seed)
-            return obs.sum() + rew.sum()
-
-        c = timed(fn, 0)
-        if compile_s is None:
-            compile_s = c
-        med[eps] = float(np.median([timed(fn, r + 1)
-                                    for r in range(REPEATS)]))
-    per_step_us = (med[2] - med[1]) / T * 1e6
-
-    return {
-        "lane_tile": lane_tile,
-        "compile_s": round(compile_s, 1),
-        "per_step_us": round(per_step_us, 2),
-        "steps_per_s": round(B / (per_step_us * 1e-6), 1),
-        "parity": {"mode": "actions", "T": Tp, "B": Bp,
-                   "max_abs_obs_err_vs_scan": float(f"{obs_err:.2e}"),
-                   "max_rel_reward_err_vs_scan": float(f"{rel:.2e}"),
-                   "parity_ok": bool(obs_err < 1e-5 and rel < 1e-5)},
-    }
-
-
 def main():
-    import jax
     from gym_supplychain_tpu.envs.presets import (SupplyChainNPerStage,
                                                   SupplyChainMultiProduct)
+    from gym_supplychain_tpu.utils.device import (card_name_and_power_limit,
+                                                  require_gpu,
+                                                  use_compile_cache)
 
-    B = int(os.environ.get("GST_BENCH_ENVS", "4096"))
-    lane_tile = int(os.environ.get("GST_LANE_TILE", "512"))
-    out = {"platform": jax.devices()[0].platform, "B": B,
-           "protocol": "post-fetch slope over 1x/2x scans (scan engine) / "
-                       "1x/2x episodes (dense kernel), median of "
+    devices = require_gpu()
+    use_compile_cache()
+    B = 4096
+    out = {"platform": devices[0].platform,
+           "device_kind": devices[0].device_kind,
+           "device_count": len(devices),
+           "card": card_name_and_power_limit(), "B": B,
+           "protocol": "post-fetch slope over 1x/2x scans, median of "
                        f"{REPEATS}"}
-    T, Tp = 360, 60
+    T = 360
     configs = {
         "NPerStage [5,4,7,10] x4prod": lambda t: SupplyChainNPerStage(
             nodes_per_echelon=[5, 4, 7, 10], num_products=4,
@@ -199,13 +101,7 @@ def main():
             stochastic_leadtimes=True).cc,
     }
     for name, make_cc in configs.items():
-        cc = make_cc(T)
-        out[name] = _bench(cc, B, T)
-        out[name]["dense_pallas"] = _bench_dense(cc, B, T, lane_tile,
-                                                 make_cc(Tp))
-        out[name]["dense_speedup"] = round(
-            out[name]["per_step_us"]
-            / out[name]["dense_pallas"]["per_step_us"], 2)
+        out[name] = _bench(make_cc(T), B, T)
         print(json.dumps({name: out[name]}), flush=True)
     print(json.dumps(out))
 

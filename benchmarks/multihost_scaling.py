@@ -5,9 +5,9 @@ sharded PPO on supplychain-ntom-v0 with the env batch sharded over the mesh
 Each process runs the identical SPMD program: its env shards live on
 process-local devices (rollouts need NO communication — envs are
 independent), and the PPO gradient all-reduce crosses process boundaries via
-the collective backend.  On a TPU pod the same code rides ICI; here Gloo/CPU
+the collective backend.  On GPUs the same code rides NCCL; here Gloo/CPU
 stands in, so the numbers demonstrate the *code path and scaling shape*, not
-TPU throughput (bench.py measures that).
+GPU throughput (bench.py measures that).
 
 Usage:
     python benchmarks/multihost_scaling.py [--envs 8192] [--iters 8]
@@ -141,7 +141,7 @@ def main():
         print(json.dumps({
             "scaling": {str(n): round(results[n] / results[base], 3)
                         for n in sorted(results)},
-            "note": "CPU+Gloo stand-in; same SPMD program rides ICI on a pod"}))
+            "note": "CPU+Gloo stand-in; the same SPMD program rides NCCL on GPUs"}))
 
 
 if __name__ == "__main__":

@@ -111,7 +111,7 @@ def measure(min_seconds: float = 3.0):
     # N-to-M demo graph (supplychain-ntom-v0), stochastic lead-times
     from gym_supplychain_tpu.envs.presets import SupplyChainNtoMEnv
     ntom_nodes = {}
-    tpu_env = SupplyChainNtoMEnv(total_time_steps=360)
+    our_env = SupplyChainNtoMEnv(total_time_steps=360)
     # rebuild the same nodes_info dict for the reference class
     import gym_supplychain_tpu.envs.presets as presets
     env_ref = sc.SupplyChainEnv(

@@ -1,6 +1,4 @@
-"""Honest PPO training throughput on one chip, with a phase breakdown
-(VERDICT r2 item 2; replaces the round-1 ~0.2 ms/iteration async-dispatch
-mismeasurement).
+"""PPO training throughput on one GPU, with a phase breakdown.
 
 Protocol: ``lax.scan`` over K iterations inside one jitted dispatch,
 post-fetch timing, per-iteration time = bench.py's pilot-scaled
@@ -14,10 +12,8 @@ so the breakdown measures the deployed code:
 * ``full``         — plus the ``epochs`` clipped-PPO updates
 * ``update`` (derived) = full - rollout+gae
 
-A second section measures :func:`make_ppo_fused` — collection through the
-trajectory-emitting Pallas kernel (whole episodes, in-kernel PRNG +
-auto-reset) feeding the same GAE/update — on the same chain.  Prints one
-JSON object.
+A second row runs the full iteration with the bf16 learner trunk.  Prints
+one JSON object naming the device.
 """
 from __future__ import annotations
 
@@ -33,12 +29,9 @@ import numpy as np
 import bench
 
 def _slope_per_iter(make_run):
-    """Seconds per iteration via bench.py's r5 pilot-scaled protocol: a
-    pilot pass sizes the iteration sweep so every slope interval carries
-    >= 100 ms of marginal device work, then the least-squares slope is
-    fitted on per-length minima.  The old fixed (2,4,8)-iteration sweep
-    carried ~5-15 ms of marginal work against +-1-2 ms of per-dispatch
-    noise and swung +-30% between runs of the same binary."""
+    """Seconds per iteration via bench.py's pilot-scaled protocol: every
+    slope interval carries >= 100 ms of marginal device work, and the
+    least-squares slope is fitted on per-length minima."""
     r = bench._measure_slope(make_run, 2)
     med = {int(k): v * 1e-3 for k, v in r["min_ms"].items()}
     return r["per_step_us"] * 1e-6, med
@@ -48,15 +41,14 @@ def main():
     import jax
 
     import gym_supplychain_tpu as sct
-    from gym_supplychain_tpu.learn.ppo import (PPOConfig, make_ppo,
-                                               make_ppo_fused)
+    from gym_supplychain_tpu.learn.ppo import PPOConfig, make_ppo
+    from gym_supplychain_tpu.utils.device import (card_name_and_power_limit,
+                                                  require_gpu,
+                                                  use_compile_cache)
 
-    B = int(os.environ.get("GST_BENCH_ENVS", "4096"))
-    # T=60 aligns the fused collection with the kernel's pipeline ring
-    # (RING=5 on ntom): T % RING == 0 enables the RING-unrolled collect
-    # grid with static VMEM ring addresses.  The r4 harness used T=64,
-    # which silently fell back to the one-step-per-iteration grid and
-    # nearly doubled the fused collection cost (16.1 vs ~9 us/step).
+    devices = require_gpu()
+    use_compile_cache()
+    B = bench.BATCH
     T = 60
     cfg = PPOConfig(rollout_steps=16, epochs=2, hidden=(128, 128))
     cc = sct.make("supplychain-ntom-v0", total_time_steps=T).cc
@@ -135,76 +127,13 @@ def main():
     scan16_s, scan16_med = _slope_per_iter(full16_run)
     scan16_sps = scan_steps / scan16_s
 
-    # ---- fused Pallas collection path (whole T-step episodes) -----------
-    def fused_result(fcfg):
-        f_init, f_step = make_ppo_fused(cc, B, fcfg, episodes=1,
-                                        noise="prng")
-
-        def make_fused_run(iters):
-            def fn(seed):
-                state = f_init(jax.random.PRNGKey(seed))
-
-                def body(state, _):
-                    state, metrics = f_step(state)
-                    return state, metrics["loss"]
-
-                state, losses = jax.lax.scan(body, state, None,
-                                             length=iters)
-                return losses.sum()
-
-            return jax.jit(fn)
-
-        fused_s, fused_med = _slope_per_iter(make_fused_run)
-        fused_steps = B * T
-        return {
-            "env_steps_per_iter": fused_steps,
-            "per_train_iter_ms": round(fused_s * 1e3, 3),
-            "median_ms": {str(k): round(v * 1e3, 2)
-                          for k, v in fused_med.items()},
-            "train_env_steps_per_s": round(fused_steps / fused_s, 1),
-        }
-
-    fused32 = fused_result(cfg)
-    fused16 = fused_result(cfg16)
-    # ---- fused UPDATE kernel (ops/ppo_update_pallas.py): forward + loss
-    # + backward in one Pallas pass, activations in VMEM tiles ------------
-    cfg_fu = cfg16._replace(fused_update=True)
-    fused_fu = fused_result(cfg_fu)
-
-    def scan_fu_result():
-        init_fu, step_fu = make_ppo(cc, B, cfg_fu)
-
-        def make_run(iters):
-            def fn(seed):
-                state = init_fu(jax.random.PRNGKey(seed))
-
-                def body(state, _):
-                    state, metrics = step_fu(state)
-                    return state, metrics["loss"]
-
-                state, losses = jax.lax.scan(body, state, None,
-                                             length=iters)
-                return losses.sum()
-
-            return jax.jit(fn)
-
-        s, med = _slope_per_iter(make_run)
-        return {
-            "env_steps_per_iter": scan_steps,
-            "per_train_iter_ms": round(s * 1e3, 3),
-            "median_ms": {str(k): round(v * 1e3, 2)
-                          for k, v in med.items()},
-            "train_env_steps_per_s": round(scan_steps / s, 1),
-        }
-
-    scan_fu = scan_fu_result()
-    fused_sps = fused_fu["train_env_steps_per_s"]
-    best = max(scan_sps, scan16_sps, fused32["train_env_steps_per_s"],
-               fused16["train_env_steps_per_s"], fused_sps,
-               scan_fu["train_env_steps_per_s"])
+    best = max(scan_sps, scan16_sps)
 
     print(json.dumps({
-        "platform": jax.devices()[0].platform,
+        "platform": devices[0].platform,
+        "device_kind": devices[0].device_kind,
+        "device_count": len(devices),
+        "card": card_name_and_power_limit(),
         "config": f"supplychain-ntom-v0 PPO, {B} envs, T={T}, "
                   f"rollout {cfg.rollout_steps} (unroll "
                   f"{cfg.rollout_unroll}), {cfg.epochs} epochs, "
@@ -226,21 +155,7 @@ def main():
                           for k, v in scan16_med.items()},
             "train_env_steps_per_s": round(scan16_sps, 1),
         },
-        "fused_path": {
-            "collection": "Pallas collect kernel, whole 64-step episodes, "
-                          "in-kernel PRNG, policy+value+logp on MXU",
-            **fused32,
-        },
-        "fused_path_bf16_learner": fused16,
-        "fused_path_fused_update": {
-            "note": "fused collection + ops/ppo_update_pallas.py gradient "
-                    "kernel (bf16 operands): forward+loss+backward in one "
-                    "Pallas pass, activations never round-trip HBM",
-            **fused_fu,
-        },
-        "scan_path_fused_update": scan_fu,
         "best_train_env_steps_per_s": round(best, 1),
-        "fused_vs_scan_speedup": round(fused_sps / scan_sps, 2),
     }, indent=1))
 
 

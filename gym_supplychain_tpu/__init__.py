@@ -1,4 +1,4 @@
-"""gym-supplychain-tpu: TPU-native vectorized supply-chain RL environments.
+"""gym-supplychain-tpu: vectorized supply-chain RL environments in JAX.
 
 A ground-up JAX/XLA re-design of the capabilities of ``gym-supplychain``
 (beer game + graph supply-chain simulators): pure-functional lockstep step

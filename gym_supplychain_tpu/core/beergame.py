@@ -3,13 +3,13 @@
 The reference beer game (beergame_env.py:6-181, beergame2_env.py:5-211)
 stores shipments densely as ``shipments[time, level]`` over the whole
 episode.  Here the per-week update becomes a batched array op over
-``[levels, B]`` state with the batch as the trailing (TPU lane) axis, and the
+``[levels, B]`` state with the batch as the trailing (contiguous) axis, and the
 shipment pipeline collapses to a **ring buffer** ``[max_delay+1, levels, B]``
 indexed by ``week % R``: a shipment placed with delay d in 1..max_delay lands
 at slot ``(week+d) % R``, which never collides with the current week's slot,
 so arrival semantics are identical to the episode-length buffer while the
 per-step state traffic shrinks from O(weeks) to O(max_delay) — this is what
-keeps the whole scan body VMEM-resident.
+keeps the scan body's state small.
 
 Semantics reproduced exactly (integer arithmetic like upstream):
 

@@ -5,7 +5,7 @@ This replaces the reference's object-wiring construction stack
 ``define_destinations``, reference supplychain_env.py:482-626) with a purely
 static compilation step.  The output is a bundle of NumPy arrays describing the
 chain topology, capacities, costs, action/lead-time index maps and observation
-normalizers.  A jitted TPU step kernel closes over these arrays as compile-time
+normalizers.  A jitted step kernel closes over these arrays as compile-time
 constants; nothing here is traced.
 
 Schema parity: the ``nodes_info`` dict uses exactly the reference's keys
@@ -266,6 +266,13 @@ def compile_chain(nodes_info: Dict[str, Dict[str, Any]],
                 has_ship[i, p] = True
                 for di in range(len(dests[i])):
                     ship_cost[i, p, di] = ship_costs_by_prod[i][p][di]
+    # Negative capacities are meaningless upstream, and the collect kernel's
+    # one-product ship clip (ops/supplychain_pallas.py) relies on cap >= 0.
+    for i, name in enumerate(names):
+        if proc_cap[i] < 0 or (ship_cap_edge[i] < 0).any():
+            raise ValueError(
+                f"node {name!r}: processing_capacity and ship_capacity must "
+                "be >= 0")
 
     # --- action vector layout (insertion order; supply block then per-product
     # ship blocks; reference supplychain_env.py:243-250, :272-296, :372) -----

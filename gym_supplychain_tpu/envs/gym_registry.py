@@ -71,7 +71,7 @@ class GymnasiumAdapter(_EnvBase):
 
 
 class GymnasiumVectorAdapter:
-    """Expose the batched TPU engine through the ``gymnasium.vector``
+    """Expose the batched engine through the ``gymnasium.vector``
     conventions (batch-FIRST arrays, autoreset every `T` steps, 5-tuple
     step).  The native batch-trailing layout stays on device; only the
     returned views are transposed.

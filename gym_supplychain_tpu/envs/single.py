@@ -1,4 +1,4 @@
-"""Single-env, reference-compatible wrapper around the batched TPU kernels.
+"""Single-env, reference-compatible wrapper around the batched kernels.
 
 This is the drop-in parity surface: same constructor schema, ``seed`` /
 ``reset`` / ``step`` / ``render`` protocol and info structure as the

@@ -8,7 +8,7 @@ final >=-bucket even though its arrival time belongs to an earlier bucket
 entry), but bit-exact *observation* parity requires replaying the heap's
 array layout.
 
-The dense TPU kernel stays heap-free; in strict mode the single-env wrapper
+The dense step kernel stays heap-free; in strict mode the single-env wrapper
 feeds this mirror with the kernel's push introspection outputs
 (``StepOutput.sup_push/sup_lt/ship_push/ship_lt``) and rebuilds the
 observation exactly as the reference does — including the node-sequential

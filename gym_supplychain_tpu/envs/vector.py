@@ -5,7 +5,7 @@ episode; SURVEY.md §2 "Data parallelism" row): a batched ``reset/step`` pair
 with batched auto-reset and on-device PRNG episode streams, suitable for
 ``lax.scan`` rollouts and ``shard_map`` sharding over a device mesh.
 
-All arrays keep the env batch as the trailing axis (TPU lanes).  Episodes are
+All arrays keep the env batch as the trailing axis.  Episodes are
 fixed-length with no early termination (reference supplychain_env.py:742), so
 the whole batch shares one clock and auto-reset is a single ``lax.cond``.
 """
@@ -42,11 +42,11 @@ def make_vec_env(cc: CompiledChain, batch_size: int, dtype=jnp.float32,
       observation of the finished episode is replaced by the initial
       observation of the new one (standard vec-env auto-reset contract).
 
-    ``rng='stateless'`` (default, the fast TPU path) draws each step's
+    ``rng='stateless'`` (default, the fast device path) draws each step's
     demand/lead-time rows counter-based from the episode key — no episode
-    tables in the scan state at all (carrying the [T+1,R,P,B] demand table
-    costs a layout copy per scan iteration, and regenerating the [T,K,B]
-    Poisson table at every auto-reset costs ~9 ms).  ``rng='table'``
+    tables in the scan state at all (no [T+1,R,P,B] demand table to carry
+    through the scan, no [T,K,B] Poisson table to regenerate at every
+    auto-reset).  ``rng='table'``
     precomputes whole-episode tables on device like the reference does
     host-side.
     """
@@ -71,13 +71,11 @@ def make_vec_env(cc: CompiledChain, batch_size: int, dtype=jnp.float32,
         env, out = step_k(state.env, action)
         key, sub = jax.random.split(state.key)
 
-        # NOTE: keep the scalar lax.cond.  Episodes are fixed-length so the
-        # predicate is shared by the whole batch and XLA executes this as a
-        # cheap real branch (the reset body runs once every T steps).
-        # A branchless tree-wide select was measured 19x SLOWER (387 us vs
-        # 20 us per scan iteration at B=4096): forcing the fresh-state
-        # computation and per-leaf selects into every iteration breaks the
-        # body's fusion.
+        # A scalar lax.cond: episodes are fixed-length, so the predicate is
+        # shared by the whole batch and the reset body runs once every T
+        # steps.  A branchless tree-wide select would compute the fresh
+        # state and a select per leaf in every step.  What the cond costs
+        # per step on the GPU is in PERF.md.
         def do_reset(_):
             fresh = _fresh(sub)
             return fresh, obs_k(fresh)

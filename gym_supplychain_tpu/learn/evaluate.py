@@ -20,8 +20,7 @@ from ..core.compile import CompiledChain
 from ..envs.vector import make_vec_env
 from ..models.policy import actor_critic_forward
 
-__all__ = ["make_evaluator", "make_fused_evaluator",
-           "make_beergame_evaluator", "main"]
+__all__ = ["make_evaluator", "make_beergame_evaluator", "main"]
 
 
 def make_evaluator(cc: CompiledChain, batch_size: int, dtype=jnp.float32):
@@ -43,43 +42,6 @@ def make_evaluator(cc: CompiledChain, batch_size: int, dtype=jnp.float32):
         (_, _), rewards = jax.lax.scan(body, (st, env_obs(st)), None,
                                        length=steps)
         per_env = rewards.reshape(episodes, cc.T, B).sum(axis=1)  # [ep, B]
-        return {"mean_return": per_env.mean(),
-                "std_return": per_env.std(),
-                "min_return": per_env.min(),
-                "max_return": per_env.max()}
-
-    return evaluate
-
-
-def make_fused_evaluator(cc: CompiledChain, batch_size: int,
-                         hidden=(128, 128)):
-    """Greedy evaluation through the fused Pallas policy-rollout kernel
-    (ops/supplychain_pallas.py): observation build, MLP actor forward (MXU)
-    and env dynamics all inside one kernel per episode — ~1.5x the scan
-    evaluator at 4096 envs on v5e, parity ≤3e-7 (docs/PERFORMANCE.md).
-
-    ``hidden`` must match the params' trunk widths.  Returns
-    ``evaluate(params, key, episodes) -> stats`` like ``make_evaluator``.
-    """
-    from ..ops.supplychain_pallas import make_supplychain_policy_rollout_pallas
-    from ..rng.device import device_demand_tables, device_leadtime_tables
-
-    B = batch_size
-    run_policy = make_supplychain_policy_rollout_pallas(
-        cc, cc.T, B, hidden=tuple(hidden))
-
-    def evaluate(params, key, episodes: int = 1):
-        def one(acc, k):
-            kd, kl = jax.random.split(k)
-            demands = device_demand_tables(kd, cc, B)
-            if cc.stochastic_leadtimes:
-                lt = device_leadtime_tables(kl, cc, B)
-                rews = run_policy(demands, lt, params)
-            else:
-                rews = run_policy(demands, params)
-            return acc, rews.sum(axis=0)                 # [B] per-env return
-
-        _, per_env = jax.lax.scan(one, 0., jax.random.split(key, episodes))
         return {"mean_return": per_env.mean(),
                 "std_return": per_env.std(),
                 "min_return": per_env.min(),
@@ -163,14 +125,13 @@ def main(argv=None):
     p.add_argument("--horizon", type=int, default=360)
     p.add_argument("--restore", required=True)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--engine", choices=("scan", "pallas"), default="scan",
-                   help="pallas = fused policy-rollout kernel (TPU)")
-    p.add_argument("--hidden", type=int, nargs="+", default=[128, 128],
-                   help="trunk widths (pallas engine; must match params)")
     args = p.parse_args(argv)
 
     import gym_supplychain_tpu as sct
     from gym_supplychain_tpu.utils.checkpoint import restore_checkpoint
+    from gym_supplychain_tpu.utils.device import use_compile_cache
+
+    use_compile_cache()
 
     cc = sct.make(args.env, total_time_steps=args.horizon).cc
     # the checkpoint format is self-describing (utils/checkpoint.py): the
@@ -178,15 +139,12 @@ def main(argv=None):
     # field names (orbax backend without a template)
     state = restore_checkpoint(args.restore)
     params = state.params if hasattr(state, "params") else state["params"]
-    if args.engine == "pallas":
-        evaluate = jax.jit(make_fused_evaluator(cc, args.envs,
-                                                tuple(args.hidden)),
-                           static_argnames="episodes")
-    else:
-        evaluate = jax.jit(make_evaluator(cc, args.envs),
-                           static_argnames="episodes")
+    evaluate = jax.jit(make_evaluator(cc, args.envs),
+                       static_argnames="episodes")
     stats = evaluate(params, jax.random.PRNGKey(args.seed), args.episodes)
-    print({k: float(v) for k, v in stats.items()})
+    stats = {k: float(v) for k, v in stats.items()}
+    print(stats)
+    return stats
 
 
 if __name__ == "__main__":

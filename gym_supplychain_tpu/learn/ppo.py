@@ -14,8 +14,7 @@ no hand-written communication.
 """
 from __future__ import annotations
 
-import functools
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -28,8 +27,7 @@ from ..models.policy import (MLPConfig, actor_critic_forward,
                              init_actor_critic, init_discrete_actor_critic,
                              sample_tanh_gaussian, tanh_gaussian_logp)
 
-__all__ = ["PPOConfig", "TrainState", "make_ppo", "make_ppo_fused",
-           "make_beergame_ppo"]
+__all__ = ["PPOConfig", "TrainState", "make_ppo", "make_beergame_ppo"]
 
 
 class PPOConfig(NamedTuple):
@@ -47,14 +45,10 @@ class PPOConfig(NamedTuple):
     # near "order nothing" otherwise collapses the policy to a corner)
     pre_tanh_reg: float = 1e-3
     hidden: Tuple[int, ...] = (128, 128)
-    # lax.scan unroll for the trajectory-collection scan: at large env
-    # batches the step kernel is op-overhead bound, and unrolling lets XLA
-    # fuse across consecutive env steps (linear chain measured ~10% faster
-    # at unroll=4 on v5e; benchmarks/unroll_experiment.py).  Costs compile
-    # time proportional to the unroll factor.  Defaults to 4 so the deployed
-    # trainer matches the benchmarked configuration (bench.py GST_UNROLL);
-    # the beer game measured no benefit, so make_beergame_ppo callers may
-    # pass 1.
+    # lax.scan unroll for the trajectory-collection scan: unrolling lets XLA
+    # fuse across consecutive env steps, at a compile-time cost proportional
+    # to the factor.  Matches bench.py's UNROLL_SC, so the trainer runs the
+    # benchmarked configuration.
     rollout_unroll: int = 4
     # minibatches per epoch (one optimizer step per minibatch; 1 = the
     # full-batch update).  Chunks slice the ENV axis, so each spans every
@@ -63,23 +57,12 @@ class PPOConfig(NamedTuple):
     # either way, so minibatches=1 reproduces the full-batch update
     minibatches: int = 1
     # trunk compute dtype for the UPDATE phase only (None = params dtype).
-    # jnp.bfloat16 halves the stored-activation HBM traffic that bounds the
-    # update at large batch; the MXU multiplies in bf16 at default precision
-    # either way, heads/log-probs stay f32, and the ROLLOUT forward (which
-    # the fused-kernel parity tests pin) is untouched.  The learner has no
-    # env-parity obligation (VERDICT r3 item 3) — this trades a little
-    # gradient precision for ~2x update throughput; quality is covered by
+    # jnp.bfloat16 halves the stored-activation traffic of the update;
+    # heads/log-probs stay f32 and the ROLLOUT forward is untouched.  The
+    # learner has no env-parity obligation, so this trades a little gradient
+    # precision for update throughput; quality is covered by
     # tests/test_vector_learn.py::test_ppo_improves_bf16_learner
     learner_dtype: Any = None
-    # run the update's forward+loss+backward as ONE Pallas kernel
-    # (ops/ppo_update_pallas.py): activations stay in VMEM sample tiles
-    # instead of round-tripping [H, M] arrays through HBM between the
-    # passes — the update phase was the trainer's throughput wall.
-    # Continuous-action trainers only; gradient parity vs autodiff pinned
-    # by tests/test_ppo_update_pallas.py.  learner_dtype applies to the
-    # kernel's matmul operands.
-    fused_update: bool = False
-    fused_update_interpret: bool = False   # CPU interpret mode (tests)
 
 
 class TrainState(NamedTuple):
@@ -150,9 +133,7 @@ def _flatten_traj(traj: Trajectory, adv, ret):
     (``_make_update``): the final flatten to the loss's [X, M] is a free
     reshape of the (S, B)-minor axes, and minibatch chunks slice the env
     axis — every chunk spans all timesteps of a block of i.i.d. env lanes
-    instead of a temporally-correlated window (ADVICE r4).  The fused
-    trainer skips this entirely: its collect kernel emits obs/act_pre
-    already sample-major (ops/supplychain_pallas.py ``sample_major``)."""
+    instead of a temporally-correlated window."""
     advn = (adv - adv.mean()) / (adv.std() + 1e-8)
     return (traj.obs.transpose(1, 0, 2), traj.act_pre.transpose(1, 0, 2),
             traj.logp, advn, ret)
@@ -164,7 +145,7 @@ def _flat2(x):
     return x.reshape(x.shape[:-2] + (-1,))
 
 
-def _make_update(cfg: PPOConfig, tx, loss_fn, dims=None, mesh=None):
+def _make_update(cfg: PPOConfig, tx, loss_fn):
     """Epoch x minibatch clipped-PPO update scan.
 
     ``update(params, opt_state, data, key) -> (params, opt_state, losses)``
@@ -173,69 +154,13 @@ def _make_update(cfg: PPOConfig, tx, loss_fn, dims=None, mesh=None):
     layout copy sits between collection and the matmuls.  Minibatches
     slice the env (B) axis — each chunk spans every timestep of a block of
     i.i.d. env lanes — in a freshly permuted order per epoch (``key``);
-    minibatches=1 reproduces the full-batch update exactly.
-    ``dims=(obs_dim, act_dim)`` enables the ``cfg.fused_update`` Pallas
-    gradient kernel (continuous loss only); with ``mesh`` the kernel runs
-    one instance per 'data' shard (B-axis sharding, flattened inside the
-    shard) with the gradients pmean'd across shards — bit-identical to the
-    unsharded full-batch gradient up to reduction order (equal shards)."""
-    if cfg.fused_update and dims is None:
-        raise ValueError("fused_update supports the continuous-action "
-                         "trainers only")
-
-    def _build_fused_gf(sz):
-        from ..ops.ppo_update_pallas import make_ppo_update_grads
-        n_data = int(mesh.shape["data"]) if mesh is not None else 1
-        if sz % n_data:
-            raise ValueError(f"minibatch {sz} not divisible by data "
-                             f"axis {n_data}")
-        szl = sz // n_data
-        # largest divisor of the per-shard minibatch <= 8192: the kernel
-        # requires szl % tile == 0 (the old min(4096, szl) hard-failed for
-        # any szl not a multiple of 4096, ADVICE r4), and the r5 tile
-        # sweep measured 8192 fastest: 0.610 ms vs 0.737 (4096) / 0.842
-        # (2048 and 16384) per 262k-sample pass; 32768 overflows VMEM
-        tile = next(t for t in range(min(8192, szl), 0, -1) if szl % t == 0)
-        gf_local = make_ppo_update_grads(
-            dims[0], dims[1], cfg.hidden, szl, clip=cfg.clip,
-            vf_coef=cfg.vf_coef, ent_coef=cfg.ent_coef,
-            pre_tanh_reg=cfg.pre_tanh_reg,
-            tile=tile, compute_dtype=cfg.learner_dtype,
-            interpret=cfg.fused_update_interpret)
-        if mesh is None:
-            return lambda params, *chunk: gf_local(
-                params, *(_flat2(d) for d in chunk))
-        from jax import shard_map
-        from jax.sharding import PartitionSpec as _P
-
-        def inner(params, obs, pre, olp, adv, ret):
-            # local shard flattened locally (free), local mean-normalized
-            # loss/grads -> global mean via pmean (equal shard sizes)
-            loss, grads = gf_local(params, _flat2(obs), _flat2(pre),
-                                   _flat2(olp), _flat2(adv), _flat2(ret))
-            return (jax.lax.pmean(loss, "data"),
-                    jax.lax.pmean(grads, "data"))
-
-        def gf(params, *chunk):
-            pspec = jax.tree.map(lambda _: _P(), params)
-            return shard_map(
-                inner, mesh=mesh,
-                in_specs=(pspec, _P(None, None, "data"),
-                          _P(None, None, "data"), _P(None, "data"),
-                          _P(None, "data"), _P(None, "data")),
-                out_specs=(_P(), pspec), check_vma=False)(params, *chunk)
-
-        return gf
-
+    minibatches=1 reproduces the full-batch update exactly."""
     def update(params, opt_state, data, key=None):
         Bb = data[0].shape[-1]
         mb = int(cfg.minibatches)
         if Bb % mb != 0:
             raise ValueError(f"minibatches {mb} must divide env batch {Bb}")
         bs = Bb // mb
-        sz = data[0].shape[-2] * bs
-        if cfg.fused_update:
-            gf = _build_fused_gf(sz)
 
         def step(carry, i):
             params, opt_state = carry
@@ -246,12 +171,8 @@ def _make_update(cfg: PPOConfig, tx, loss_fn, dims=None, mesh=None):
                     jax.lax.dynamic_slice_in_dim(d, i * bs, bs,
                                                  axis=d.ndim - 1)
                     for d in data)
-            if cfg.fused_update:
-                loss, grads = gf(params, *chunk)
-            else:
-                (loss, aux), grads = jax.value_and_grad(
-                    loss_fn, has_aux=True)(
-                        params, *(_flat2(d) for d in chunk))
+            (loss, aux), grads = jax.value_and_grad(
+                loss_fn, has_aux=True)(params, *(_flat2(d) for d in chunk))
             updates, opt_state = tx.update(grads, opt_state, params)
             params = optax.apply_updates(params, updates)
             return (params, opt_state), loss
@@ -259,8 +180,7 @@ def _make_update(cfg: PPOConfig, tx, loss_fn, dims=None, mesh=None):
         if key is None or mb == 1:
             idx = jnp.tile(jnp.arange(mb), cfg.epochs)
         else:
-            # fresh chunk order per epoch (ADVICE r4: the fixed order
-            # repeated the same sequence of minibatches every epoch)
+            # fresh chunk order per epoch
             idx = jax.vmap(lambda k: jax.random.permutation(k, mb))(
                 jax.random.split(key, cfg.epochs)).reshape(-1)
         (params, opt_state), losses = jax.lax.scan(
@@ -271,7 +191,7 @@ def _make_update(cfg: PPOConfig, tx, loss_fn, dims=None, mesh=None):
 
 
 def make_ppo(cc: CompiledChain, batch_size: int, cfg: PPOConfig = PPOConfig(),
-             dtype=jnp.float32, reward_scale: float = 1e-4, mesh=None):
+             dtype=jnp.float32, reward_scale: float = 1e-4):
     """Build (init_fn, train_step) for PPO on a compiled chain.
 
     ``init_fn(key) -> TrainState``; ``train_step(state) -> (state, metrics)``
@@ -315,8 +235,7 @@ def make_ppo(cc: CompiledChain, batch_size: int, cfg: PPOConfig = PPOConfig(),
 
     _gae = _make_gae(cfg)
     _loss = _make_cont_loss(cfg)
-    _update = _make_update(cfg, tx, _loss, dims=(cc.obs_dim, cc.A),
-                           mesh=mesh)
+    _update = _make_update(cfg, tx, _loss)
 
     def train_step(state: TrainState):
         key, kr = jax.random.split(state.key)
@@ -339,179 +258,6 @@ def make_ppo(cc: CompiledChain, batch_size: int, cfg: PPOConfig = PPOConfig(),
     train_step.gae = _gae
     train_step.loss = _loss
     train_step.update = _update
-    return init_fn, train_step
-
-
-class FusedTrainState(NamedTuple):
-    params: Any
-    opt_state: Any
-    key: jax.Array
-
-
-def make_ppo_fused(cc: CompiledChain, batch_size: int,
-                   cfg: PPOConfig = PPOConfig(), episodes: int = 1,
-                   noise: str = "prng", reward_scale: float = 1e-4,
-                   interpret: bool = False, mesh=None):
-    """PPO with the trajectory-emitting fused Pallas collection path.
-
-    Collection runs whole ``cc.T``-step episodes (``episodes`` back-to-back
-    per iteration, in-kernel auto-reset) in ONE kernel
-    (ops/supplychain_pallas.py::make_supplychain_collect_pallas): each grid
-    step builds the observation from live VMEM state, runs the MLP
-    actor+critic on the MXU, samples the tanh-Gaussian action, advances the
-    env, and writes the (obs, pre-tanh action, logp, value, reward)
-    trajectory row to HBM — zero per-step dispatch and no state round-trips,
-    vs the scan path's per-step HBM traffic.  GAE + clipped-PPO epochs then
-    consume the HBM trajectory exactly as in :func:`make_ppo` (rollout
-    parity vs the scan body is pinned by tests/test_pallas_collect.py).
-
-    ``noise='prng'`` draws all stochastic inputs (demand/lead-time rows,
-    exploration noise) from the in-kernel TPU PRNG — the fast path
-    (distribution parity with the host generator per
-    tests/test_rng_distribution.py).  ``noise='table'`` feeds device-drawn
-    per-episode tables + a normal noise table through the 'policy_eps'
-    kernel — stream-reproducible and CPU-runnable (interpret mode).
-
-    ``mesh``: a ``jax.sharding.Mesh`` with a ``'data'`` axis makes the
-    collection kernel mesh-shardable (VERDICT r3 item 1): one kernel
-    instance runs per 'data' shard over ``batch_size // n_data`` env lanes
-    via ``shard_map`` (params replicated into every instance), and the
-    GAE/update phases run on the batch-sharded trajectory with XLA
-    inserting the loss/gradient collectives.  In table mode the per-lane
-    tables are drawn GLOBALLY from the iteration key before sharding, so
-    the sharded run is lane-for-lane identical to the unsharded one
-    (asserted by ``__graft_entry__.dryrun_multichip``); in prng mode each
-    shard folds its data-axis index into the kernel seed (independent
-    streams — not reproducible across different mesh shapes).
-
-    Returns ``(init_fn, train_step)``; episodes are whole, so no bootstrap
-    value is needed (the terminal step's nonterminal mask is 0).
-    """
-    if noise not in ("prng", "table"):
-        raise ValueError(f"noise must be 'prng' or 'table', got {noise!r}")
-    B, T, E = batch_size, cc.T, episodes
-    S = E * T
-    mcfg = MLPConfig(obs_dim=cc.obs_dim, act_dim=cc.A, hidden=cfg.hidden)
-    tx = optax.chain(optax.clip_by_global_norm(cfg.max_grad_norm),
-                     optax.adam(cfg.lr))
-    from ..ops.supplychain_pallas import make_supplychain_collect_pallas
-    from ..rng.device import device_demand_tables, device_leadtime_tables
-    mode = "policy" if noise == "prng" else "policy_eps"
-    n_data = int(mesh.shape["data"]) if mesh is not None else 1
-    if B % max(n_data, 1) != 0:
-        raise ValueError(f"batch_size {B} not divisible by data axis "
-                         f"{n_data}")
-    Bk = B // n_data                     # per-kernel-instance lanes
-    # single-shard trainers take obs/act_pre straight from the kernel in
-    # the update phase's [X, S*B] layout (sample_major): the r4 trainer
-    # spent ~0.2 ms/iter re-transposing the trajectory between collection
-    # and update; under a mesh the global column order would interleave
-    # shards, so the mesh path keeps the [S, X, B] layout + transpose
-    sample_major = mesh is None
-    run = make_supplychain_collect_pallas(cc, T, Bk, mode=mode, episodes=E,
-                                          hidden=cfg.hidden,
-                                          interpret=interpret,
-                                          sample_major=sample_major)
-    if mesh is not None:
-        from jax import shard_map
-        from jax.sharding import PartitionSpec as _P
-        _b4 = _P(None, None, None, "data")   # [S, R, P, B] demand tables
-        _b3 = _P(None, None, "data")         # [S, X, B] batch-trailing
-        _b2 = _P(None, "data")               # [S, B]
-        _repl = _P()
-        # run's outputs: obs [S,O,B], act_pre [S,A,B], logp/value/rew [S,B]
-        _policy_out = (_b3, _b3, _b2, _b2, _b2)
-
-        def _shard3(f, in_specs):
-            # pallas calls inside shard_map need the varying-manual-axes
-            # check off (kernel outputs carry no replication info)
-            return shard_map(f, mesh=mesh, in_specs=in_specs,
-                             out_specs=_policy_out, check_vma=False)
-    # one whole episode per lane per iteration => terminal at step T-1
-    done = (jnp.arange(S) % T) == T - 1
-    _gae = _make_gae(cfg)
-    _loss = _make_cont_loss(cfg)
-    _update = _make_update(cfg, tx, _loss, dims=(cc.obs_dim, cc.A),
-                           mesh=mesh)
-
-    def init_fn(key) -> FusedTrainState:
-        kp, kk = jax.random.split(key)
-        params = init_actor_critic(kp, mcfg, jnp.float32)
-        return FusedTrainState(params=params, opt_state=tx.init(params),
-                               key=kk)
-
-    def _draw_tables(key):
-        """Global per-episode tables: [S, ..., B] with the S axis holding
-        ``episodes`` fresh episodes back-to-back (the kernel's grid step t
-        reads table row t; rows [e*T, (e+1)*T) are episode e's).  Row T of
-        a demand table is only visible in the post-terminal obs, which
-        collection never emits — drop it."""
-        kd, kl, ke = jax.random.split(key, 3)
-        dem = jax.vmap(lambda k: device_demand_tables(k, cc, B)[:T])(
-            jax.random.split(kd, E)).reshape(S, cc.R, cc.P, B)
-        eps = jax.random.normal(ke, (S, cc.A, B), jnp.float32)
-        lt = None
-        if cc.stochastic_leadtimes:
-            lt = jax.vmap(lambda k: device_leadtime_tables(k, cc, B))(
-                jax.random.split(kl, E)).reshape(S, cc.K, B)
-        return dem, lt, eps
-
-    def _collect(params, key):
-        if mesh is not None:
-            return _collect_sharded(params, key)
-        if noise == "prng":
-            seed = jax.random.randint(key, (), 0, jnp.iinfo(jnp.int32).max,
-                                      jnp.int32)
-            return run(params, seed)
-        dem, lt, eps = _draw_tables(key)
-        if lt is not None:
-            return run(dem, lt, eps, params)
-        return run(dem, eps, params)
-
-    def _collect_sharded(params, key):
-        pspec = jax.tree.map(lambda _: _P(), params)
-        if noise == "prng":
-            seed = jax.random.randint(key, (), 0, jnp.iinfo(jnp.int32).max,
-                                      jnp.int32)
-
-            def inner(params, seed):
-                idx = jax.lax.axis_index("data").astype(jnp.int32)
-                # distinct per-shard stream: large odd multiplier keeps
-                # shards far apart in the (seed, step) seeding space
-                return run(params, seed ^ (idx * jnp.int32(0x3504f333)))
-
-            return _shard3(inner, (pspec, _repl))(params, seed)
-        dem, lt, eps = _draw_tables(key)
-        if lt is not None:
-            f = _shard3(lambda d, l, e, p: run(d, l, e, p),
-                        (_b4, _b3, _b3, pspec))
-            return f(dem, lt, eps, params)
-        f = _shard3(lambda d, e, p: run(d, e, p), (_b4, _b3, pspec))
-        return f(dem, eps, params)
-
-    def train_step(state: FusedTrainState):
-        key, kr = jax.random.split(state.key)
-        obs, pre, logp, value, rew = _collect(state.params, kr)
-        traj = Trajectory(obs=obs, act_pre=pre, logp=logp,
-                          reward=rew * reward_scale, value=value, done=done)
-        adv, ret = _gae(traj, jnp.zeros_like(value[-1]))
-        advn = (adv - adv.mean()) / (adv.std() + 1e-8)
-        if sample_major:
-            # free views of the kernel's [X, S*B] trajectory layout
-            obs3 = obs.reshape(cc.obs_dim, S, Bk)
-            pre3 = pre.reshape(cc.A, S, Bk)
-        else:
-            obs3 = obs.transpose(1, 0, 2)
-            pre3 = pre.transpose(1, 0, 2)
-        params, opt_state, losses = _update(
-            state.params, state.opt_state, (obs3, pre3, logp, advn, ret),
-            key=jax.random.fold_in(key, 0x7fb5))
-        metrics = {"loss": losses[-1],
-                   "mean_reward": traj.reward.mean() / reward_scale,
-                   "mean_value": traj.value.mean()}
-        return FusedTrainState(params=params, opt_state=opt_state,
-                               key=key), metrics
-
     return init_fn, train_step
 
 

@@ -1,10 +1,16 @@
 """Training CLI: PPO over batched envs, optionally sharded over a mesh.
 
-Usage (single chip):
+Usage (one GPU):
     python -m gym_supplychain_tpu.learn.train --env supplychain-ntom-v0 \
         --envs 4096 --iters 200
-Multi-host (one process per host; TPU pods auto-detect the coordinator):
-    python -m gym_supplychain_tpu.learn.train --multihost ...
+All GPUs of a machine, one process: the same command; the env batch is
+sharded over a ('data', 'model') mesh of every visible device and XLA
+emits the gradient all-reduce (NCCL between cards).
+Several processes, one card each (e.g. across machines): start one process
+per card with
+    --coordinator HOST:PORT --num-processes N --process-id I
+and each process initializes JAX's distributed runtime with those values
+and sees only its own card (``parallel/mesh.py``).
 
 This supplies the training entry point the reference delegated to external
 stable-baselines loops (SURVEY.md §3.5).
@@ -12,13 +18,13 @@ stable-baselines loops (SURVEY.md §3.5).
 from __future__ import annotations
 
 import argparse
-import time
 
 import jax
-import numpy as np
 
 
 def main(argv=None):
+    """Run the CLI; returns ``(initial params, final state, per-iteration
+    metrics)`` for in-process callers."""
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--env", default="supplychain-ntom-v0")
     p.add_argument("--envs", type=int, default=1024)
@@ -31,75 +37,44 @@ def main(argv=None):
     p.add_argument("--horizon", type=int, default=360)
     p.add_argument("--model-axis", type=int, default=1,
                    help="tensor-parallel degree over policy hidden dims")
-    p.add_argument("--fused", action=argparse.BooleanOptionalAction,
-                   default=None,
-                   help="collect whole episodes through the Pallas fused "
-                        "kernel (learn/ppo.py::make_ppo_fused; supply-chain "
-                        "envs; on >1 device one kernel instance runs per "
-                        "'data'-axis shard via shard_map).  DEFAULT ON for "
-                        "supply-chain envs on TPU (the benchmarked fast "
-                        "path); --no-fused selects the scan trainer")
-    p.add_argument("--fused-episodes", type=int, default=1)
-    p.add_argument("--fused-update", action=argparse.BooleanOptionalAction,
-                   default=None,
-                   help="run the update's forward+loss+backward as one "
-                        "Pallas kernel (ops/ppo_update_pallas.py; "
-                        "supply-chain trainers; composes with the mesh).  "
-                        "DEFAULT ON wherever --fused resolves on")
     p.add_argument("--learner-dtype", default=None, choices=[None, "bf16"],
                    help="update-phase trunk compute dtype (bf16 halves "
                         "stored-activation traffic; rollout unaffected)")
     p.add_argument("--minibatches", type=int, default=1,
                    help="contiguous minibatches per PPO epoch")
-    p.add_argument("--multihost", action="store_true")
+    p.add_argument("--coordinator", default=None,
+                   help="HOST:PORT of process 0 (multi-process runs)")
+    p.add_argument("--num-processes", type=int, default=1)
+    p.add_argument("--process-id", type=int, default=0)
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--restore", default=None)
     p.add_argument("--trace-dir", default=None)
     p.add_argument("--log-every", type=int, default=10)
     args = p.parse_args(argv)
 
-    if args.multihost:
-        jax.distributed.initialize()
+    from gym_supplychain_tpu.parallel.mesh import (init_distributed,
+                                                   make_mesh, replicated)
+    from gym_supplychain_tpu.utils.device import use_compile_cache
+
+    use_compile_cache()
+    init_distributed(args.coordinator, args.num_processes, args.process_id)
 
     import gym_supplychain_tpu as sct
     from gym_supplychain_tpu.learn.ppo import (PPOConfig, make_beergame_ppo,
                                                make_ppo)
-    from gym_supplychain_tpu.parallel.mesh import make_mesh, replicated
     from gym_supplychain_tpu.utils.checkpoint import (restore_checkpoint,
                                                       save_checkpoint)
     from gym_supplychain_tpu.utils.profiling import (Throughput, log_metrics,
                                                      trace)
 
     import jax.numpy as jnp
-    # r4 measured the fused collection + fused update kernels 1.5-3.5x the
-    # scan/autodiff path (docs/PERFORMANCE.md "Trained throughput"), so
-    # they are the DEFAULT wherever supported: supply-chain envs on TPU
-    # without tensor parallelism.  --no-fused / --no-fused-update opt out.
-    on_tpu = jax.devices()[0].platform == "tpu"
-    supplychain = not args.env.startswith("beergame")
-    if args.fused is None:
-        args.fused = supplychain and on_tpu and args.model_axis == 1
-    if args.fused_update is None:
-        args.fused_update = args.fused and supplychain and on_tpu
     cfg = PPOConfig(rollout_steps=args.rollout_steps, epochs=args.epochs,
                     lr=args.lr, hidden=tuple(args.hidden),
                     minibatches=args.minibatches,
                     learner_dtype=(jnp.bfloat16
-                                   if args.learner_dtype == "bf16" else None),
-                    fused_update=args.fused_update)
+                                   if args.learner_dtype == "bf16" else None))
     key = jax.random.PRNGKey(args.seed)
     n_dev = len(jax.devices())
-    if args.fused and args.model_axis > 1:
-        raise SystemExit("--fused shards the collection kernel over the "
-                         "'data' axis with replicated params; --model-axis "
-                         "applies to the scan-path trainer only")
-    if args.fused_update and args.env.startswith("beergame"):
-        raise SystemExit("--fused-update supports the continuous-action "
-                         "supply-chain trainers only")
-    if args.fused or args.fused_update:
-        print(f"# engine: fused_collect={bool(args.fused)} "
-              f"fused_update={bool(args.fused_update)} (--no-fused / "
-              f"--no-fused-update for the scan/autodiff path)")
     mesh = None
     if n_dev > 1:
         mesh = make_mesh(data=n_dev // args.model_axis,
@@ -109,29 +84,11 @@ def main(argv=None):
     if args.env.startswith("beergame"):
         init_fn, train_step = make_beergame_ppo(
             args.envs, cfg, v2=args.env.endswith("v2"))
-    elif args.fused:
-        from gym_supplychain_tpu.learn.ppo import make_ppo_fused
-        cc = sct.make(args.env, total_time_steps=args.horizon).cc
-        init_fn, train_step = make_ppo_fused(cc, args.envs, cfg,
-                                             episodes=args.fused_episodes,
-                                             mesh=mesh)
     else:
         cc = sct.make(args.env, total_time_steps=args.horizon).cc
-        init_fn, train_step = make_ppo(
-            cc, args.envs, cfg,
-            mesh=mesh if args.fused_update else None)
+        init_fn, train_step = make_ppo(cc, args.envs, cfg)
 
-    if mesh is not None and args.fused:
-        # FusedTrainState is fully replicated (params/opt/key); the
-        # trajectory sharding comes from the shard_map inside train_step
-        repl = replicated(mesh)
-        sh = jax.tree.map(lambda _: repl, jax.eval_shape(init_fn, key))
-        state = jax.jit(init_fn, out_shardings=sh)(key)
-        step_jit = jax.jit(
-            train_step, in_shardings=(sh,),
-            out_shardings=(sh, {"loss": repl, "mean_reward": repl,
-                                "mean_value": repl}))
-    elif mesh is not None:
+    if mesh is not None:
         # global shardings at creation time: required for multi-process
         # (multi-host) runs, where arrays built outside jit are committed to
         # process-local devices
@@ -151,13 +108,13 @@ def main(argv=None):
 
     if args.restore:
         state = restore_checkpoint(args.restore, like=state)
-    steps_per_iter = (args.horizon * args.fused_episodes
-                      if args.fused and not args.env.startswith("beergame")
-                      else cfg.rollout_steps)
-    meter = Throughput(args.envs * steps_per_iter)
+    init_params = state.params
+    history = []
+    meter = Throughput(args.envs * cfg.rollout_steps)
     with trace(args.trace_dir):
         for it in range(args.iters):
             state, metrics = step_jit(state)
+            history.append(metrics)
             if it == 0:
                 jax.block_until_ready(metrics)
                 meter.reset()          # exclude compile time from steps/s
@@ -169,6 +126,7 @@ def main(argv=None):
     if args.checkpoint_dir:
         path = save_checkpoint(args.checkpoint_dir, state, step=args.iters)
         print(f"# checkpoint: {path}")
+    return init_params, state, history
 
 
 if __name__ == "__main__":

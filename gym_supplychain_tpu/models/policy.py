@@ -3,8 +3,11 @@
 The reference has no model code at all (SURVEY.md §3.5: training was external
 stable-baselines); this supplies the missing learner layer natively.  Obs are
 small (<~100 dims) so the policy is an MLP; batch stays the trailing axis
-(``x[obs_dim, B]``) so layers are ``W[h_out, h_in] @ x`` — batch rides the MXU
-lane dimension.
+(``x[obs_dim, B]``) so layers are ``W[h_out, h_in] @ x`` with the batch as
+the matmul's wide N dimension.  No precision is set: float32 products may
+run as TF32 on a GPU at default precision (set
+``jax.default_matmul_precision("highest")`` where a comparison needs full
+float32).
 
 Tensor-parallel hook: ``hidden_sharding`` names a mesh axis to shard the
 hidden dimension over (SURVEY.md §2 TP row: documented as an optional pjit
@@ -55,11 +58,9 @@ def actor_critic_forward(params, obs, compute_dtype=None):
     """obs[obs_dim, B] -> (mu[A, B], log_std[A, 1], value[B]).
 
     ``compute_dtype`` (e.g. ``jnp.bfloat16``) runs the TRUNK matmuls and
-    activations in that dtype with f32 master params — on TPU the MXU
-    multiplies in bf16 either way (default precision), so this saves the
-    HBM traffic of the stored activations, which is what bounds the PPO
-    update phase at large batch.  Heads always compute in the params'
-    dtype (f32): ``mu``/``value`` feed the log-prob and ratio math, which
+    activations in that dtype with f32 master params, halving the memory
+    traffic of the stored activations in the PPO update.  Heads always
+    compute in the params' dtype (f32): ``mu``/``value`` feed the log-prob and ratio math, which
     is precision-sensitive.  ``None`` keeps everything in the params'
     dtype (the rollout/parity path)."""
     if compute_dtype is not None:

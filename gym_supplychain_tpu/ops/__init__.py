@@ -1,11 +1,10 @@
-"""Hand-written TPU kernels (Pallas).
+"""Hand-written GPU kernels (Pallas, Triton route).
 
-The simulation engines in ``core/`` compile to fused XLA While-loops that
-already run at ~0.1-0.3 us per step (docs/PERFORMANCE.md) — XLA's fusion is
-the right tool for those bodies, so the default compute path is plain
-jax.numpy.  This package holds the Pallas implementations we maintain for
-the cases where manual control wins (whole-episode fusion with on-chip
-state, see ``beergame_pallas``) together with their parity tests and
-benchmarks, so the XLA-vs-Pallas tradeoff stays measured rather than
+The step semantics live in ``core/`` as plain jax.numpy under ``lax.scan``;
+on a GPU each env step there is a chain of small XLA kernels.  The collect
+kernels here run whole episodes in one program per lane tile instead
+(``supplychain_pallas``, ``beergame_pallas``), replaying episode tables.
+``reference`` holds the table draws and the scan-engine reference they are
+compared with, so the XLA-vs-Pallas tradeoff stays measured rather than
 assumed.
 """

@@ -1,411 +1,196 @@
-"""Pallas TPU kernel: whole-episode beer game rollout in one kernel launch.
+"""Pallas (Triton route) kernel: whole-episode beer-game trajectory collect.
 
-The ``lax.scan`` path (core/beergame.py) executes one XLA While iteration per
-week; this kernel instead runs the **entire episode** as a static
-``fori_loop`` inside a single Pallas program, with every state buffer —
-inventory, backlog, order slips, the shipment ring — living in VMEM scratch
-for the full episode.  Same semantics as the scan kernel (reference
-beergame_env.py:66-138): receive -> fill -> record -> place orders -> reward.
+The beer-game counterpart of ``ops/supplychain_pallas.py``: one program owns
+``Bt`` env lanes and runs ``episodes`` back-to-back episodes in a
+``lax.fori_loop``, writing each week's observation ``[L, Bt]`` and reward
+``[Bt]`` rows to the ``[S, L, B]`` / ``[S, B]`` trajectory.  Inventory,
+backlog, the order slips and the shipment pipeline are loop-carried int32
+``[Bt]`` rows, one per level; the pipeline is a shift register (``pipe[j]``
+arrives ``j + 1`` weeks from now), so every slot access is static.
 
-Layout: the env batch is the trailing (128-wide lane) axis everywhere; the
-``levels`` axis sits on sublanes.  All integer arithmetic in int32, matching
-``make_beergame_kernels(itype=jnp.int32)`` bit-for-bit (verified by
-tests/test_pallas_ops.py).
-
-Scope notes (measured in benchmarks/pallas_vs_xla.py, docs/PERFORMANCE.md):
-the scan body is already fully fused by XLA, so this kernel wins the
-remaining While-iteration overhead — measured up to ~2x per whole episode at
-4096 envs (0.063 ms vs 0.123 ms), converging at larger batches where both
-hit the dispatch floor.  It is the maintained pattern for episode-granular
-fusion (actions precomputed, e.g. replay/evaluation sweeps); the scan path
-stays the default because it feeds per-step observations to a policy.
-``beergame_episode_pallas`` is v0/scalar-delay; the collect kernel below
-also covers v2 (capacity penalty, offset obs, orders = action) and
-per-lane stochastic delay tables (beergame2_env.py:41-58, :87-92,
-:111-112, :168, :177-184).
+Semantics match ``core/beergame.py`` with ``itype=int32`` bit for bit
+(reference beergame_env.py:66-138): receive -> fill -> deliver -> record ->
+place orders -> reward; a zero delay delivers straight into downstream
+inventory (:93-96, :111-114).  ``v2=True`` switches orders to the action
+verbatim (beergame2_env.py:168), adds the exceeded-capacity penalty
+(:177-184) and offsets the observation by ``max_stock`` (:111-112).
 """
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-__all__ = ["beergame_episode_pallas", "make_beergame_collect_pallas"]
+from .supplychain_pallas import DEFAULT_BATCH_TILE, _pad_lanes, num_warps_for
 
-
-def _episode_kernel(demand_ref, action_ref, inv0_ref, reward_ref,
-                    inv_ref, back_ref, orders_ref, ring_ref, *,
-                    weeks: int, levels: int, delay: int, ring: int,
-                    init_delay: int, init_ship: int, init_orders: int,
-                    inv_cost: int, backlog_cost: int):
-    L = levels
-
-    # episode-initial state (beergame_env.py:46-52, :140-156)
-    inv_ref[:] = inv0_ref[:]
-    back_ref[:] = jnp.zeros_like(back_ref)
-    orders_ref[:] = jnp.full_like(orders_ref, init_orders)
-    # ring slots 1..init_delay hold the initial in-transit value (the
-    # reference seeds shipments[1 : 1+shipment_delays[0]], the PREPENDED
-    # initial delay, independent of the per-week delay; beergame_env.py:39,
-    # :50-52)
-    slot_ids = jax.lax.broadcasted_iota(jnp.int32, ring_ref.shape, 0)
-    ring_ref[:] = jnp.where((slot_ids >= 1) & (slot_ids <= init_delay),
-                            jnp.int32(init_ship), jnp.int32(0))
-
-    def week_body(w, _):
-        week = w + 1
-        slot = week % ring
-        # 1. receive scheduled shipments; clear the consumed slot
-        inventory = inv_ref[:] + ring_ref[slot]
-        ring_ref[slot] = jnp.zeros((L, ring_ref.shape[-1]), jnp.int32)
-
-        # 2. fill orders (incoming = [customer demand, upstream's orders])
-        demand_row = demand_ref[w]                          # [B]
-        placed = orders_ref[:]
-        incoming = jnp.concatenate([demand_row[None, :], placed[:-1]], axis=0)
-        orders_to_fill = incoming + back_ref[:]
-        to_deliver = jnp.minimum(inventory, orders_to_fill)
-
-        # 3. deliveries downstream + factory self-supply: immediate into
-        # inventory when delay == 0 (beergame_env.py:93-96, :111-114),
-        # scheduled into the ring at w+delay otherwise
-        downstream = jnp.concatenate(
-            [to_deliver[1:], placed[-1:]], axis=0)          # [L, B]
-        if delay == 0:
-            inventory = inventory + downstream
-        else:
-            wslot = (week + delay) % ring
-            ring_ref[wslot] = ring_ref[wslot] + downstream
-
-        # 4. record inventory / backlog
-        inventory = inventory - to_deliver
-        backlog = orders_to_fill - to_deliver
-        inv_ref[:] = inventory
-        back_ref[:] = backlog
-
-        # 5. place orders = incoming + action (v0, beergame_env.py:121)
-        orders_ref[:] = incoming + action_ref[w]
-
-        # 6. reward
-        reward_ref[w] = -jnp.sum(
-            inv_cost * inventory + backlog_cost * backlog, axis=0)
-        return 0
-
-    jax.lax.fori_loop(0, weeks, week_body, 0)
-
-
-@functools.partial(jax.jit, static_argnames=("delay", "init_delay",
-                                             "init_ship", "init_orders",
-                                             "inv_cost", "backlog_cost",
-                                             "interpret"))
-def beergame_episode_pallas(demand, actions, initial_inventory,
-                            delay: int = 2, init_delay: int = None,
-                            init_ship: int = 4, init_orders: int = 4,
-                            inv_cost: int = 1, backlog_cost: int = 2,
-                            interpret: bool = False):
-    """Run one full beer game episode on-chip.
-
-    ``demand[W, B]`` int32, ``actions[W, L, B]`` int32,
-    ``initial_inventory[L, B]`` int32 -> per-week rewards ``[W, B]`` int32.
-    ``init_delay`` is the reference's prepended initial delay governing the
-    initially in-transit shipments (defaults to ``delay``).
-    """
-    W, L, B = actions.shape
-    if init_delay is None:
-        init_delay = delay
-    ring = max(delay, init_delay) + 1
-    kernel = functools.partial(
-        _episode_kernel, weeks=W, levels=L, delay=delay, ring=ring,
-        init_delay=init_delay, init_ship=init_ship, init_orders=init_orders,
-        inv_cost=inv_cost, backlog_cost=backlog_cost)
-    return pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((W, B), jnp.int32),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM),
-                  pl.BlockSpec(memory_space=pltpu.VMEM),
-                  pl.BlockSpec(memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((L, B), jnp.int32),        # inventory
-            pltpu.VMEM((L, B), jnp.int32),        # backlog
-            pltpu.VMEM((L, B), jnp.int32),        # orders placed
-            pltpu.VMEM((ring, L, B), jnp.int32),  # shipment ring
-        ],
-        interpret=interpret,
-    )(demand.astype(jnp.int32), actions.astype(jnp.int32),
-      initial_inventory.astype(jnp.int32))
-
-
-# ---------------------------------------------------------------------------
-# Trajectory-emitting collect kernel (obs + reward every week, in-kernel
-# auto-reset): the beer-game counterpart of
-# ops/supplychain_pallas.py::make_supplychain_collect_pallas.
-# ---------------------------------------------------------------------------
-
-def _collect_kernel(*refs, mode: str, weeks: int, levels: int, delay,
-                    ring: int, init_delay: int, init_ship: int,
-                    init_orders: int, init_inv: int, inv_cost: int,
-                    backlog_cost: int, max_order: int, v2: bool,
-                    max_stock: int, penalty: int, max_delay: int,
-                    n_tiles: int = 1):
-    """One grid step per env week over ``episodes * weeks`` steps.
-
-    mode 'random': actions drawn from the on-chip PRNG (uniform ints in
-    [0, max_order), exact for power-of-two max_order via a bit mask) —
-    the headline collection workload.  mode 'actions': a pre-tiled
-    [S, L, B] action table — the parity variant replayed against the
-    ``lax.scan`` kernel (core/beergame.py) bit-for-bit.
-
-    ``delay is None`` selects PER-LANE delay tables (an [S, 1, B] input,
-    row = this week's delay per lane, the v2 stochastic-delay semantics
-    beergame2_env.py:87-92): deliveries scatter into ring slots via
-    unrolled masked adds over the 0..max_delay outcomes, with delay==0
-    delivering straight into downstream inventory (:93-96, :111-114).
-    ``v2`` switches orders to the action verbatim (beergame2_env.py:168),
-    adds the exceeded-capacity penalty (:177-184) and offsets the
-    observation by ``max_stock`` (:111-112).
-    """
-    L = levels
-    per_lane_delay = delay is None
-    i = 0
-    demand_ref = refs[i]; i += 1
-    delays_ref = None
-    if per_lane_delay:
-        delays_ref = refs[i]; i += 1
-    if mode == "random":
-        seed_ref = refs[i]; i += 1
-        act_ref = None
-    else:
-        act_ref = refs[i]; i += 1
-        seed_ref = None
-    obs_ref, reward_ref = refs[i:i + 2]; i += 2
-    inv_ref, back_ref, orders_ref, ring_ref = refs[i:i + 4]
-
-    ti = pl.program_id(0) if n_tiles == 1 else pl.program_id(1)
-    te = ti % weeks                      # week index within this episode
-    week = te + 1
-
-    @pl.when(te == 0)
-    def _init():
-        # episode-initial state (beergame_env.py:39-52): fresh inventory,
-        # zero backlog, initial orders, ring slots 1..init_delay seeded
-        # (the PREPENDED initial delay — constant 2 in the reference, also
-        # for the stochastic variants, beergame2_env.py:50)
-        inv_ref[:] = jnp.full_like(inv_ref, init_inv)
-        back_ref[:] = jnp.zeros_like(back_ref)
-        orders_ref[:] = jnp.full_like(orders_ref, init_orders)
-        slot_ids = jax.lax.broadcasted_iota(jnp.int32, ring_ref.shape, 0)
-        ring_ref[:] = jnp.where((slot_ids >= 1) & (slot_ids <= init_delay),
-                                jnp.int32(init_ship), jnp.int32(0))
-
-    slot = week % ring
-    # 1. receive scheduled shipments; clear the consumed slot
-    inventory = inv_ref[:] + ring_ref[slot]
-    ring_ref[slot] = jnp.zeros((L, ring_ref.shape[-1]), jnp.int32)
-
-    # 2. fill orders (incoming = [customer demand, upstream's orders])
-    demand_row = demand_ref[0, 0]                           # [B]
-    placed = orders_ref[:]
-    incoming = jnp.concatenate([demand_row[None, :], placed[:-1]], axis=0)
-    orders_to_fill = incoming + back_ref[:]
-    to_deliver = jnp.minimum(inventory, orders_to_fill)
-
-    # 3. deliveries downstream + factory self-supply (beergame_env.py:93-96,
-    # :111-114)
-    downstream = jnp.concatenate([to_deliver[1:], placed[-1:]], axis=0)
-    if per_lane_delay:
-        dl = delays_ref[0, 0]                               # [B] int32
-        # delay == 0: straight into inventory (integer adds commute, so
-        # adding before the to_deliver subtraction matches the scan kernel
-        # bit-for-bit); 1..max_delay: masked add into the ring slot
-        inventory = inventory + jnp.where(dl[None] == 0, downstream, 0)
-        for d in range(1, max_delay + 1):
-            wslot = (week + d) % ring
-            ring_ref[wslot] = ring_ref[wslot] + jnp.where(
-                dl[None] == d, downstream, 0)
-    elif delay == 0:
-        inventory = inventory + downstream
-    else:
-        wslot = (week + delay) % ring
-        ring_ref[wslot] = ring_ref[wslot] + downstream
-
-    # 4. record inventory / backlog
-    inventory = inventory - to_deliver
-    backlog = orders_to_fill - to_deliver
-    inv_ref[:] = inventory
-    back_ref[:] = backlog
-
-    # 5. place orders: incoming + action (v0, beergame_env.py:121) or the
-    # action verbatim (v2, beergame2_env.py:168)
-    if mode == "random":
-        # distinct per-step stream from (seed, step); power-of-two
-        # max_order makes the bit mask exactly uniform.  Lane tiles fold
-        # the tile index in (n_tiles == 1 matches the r4 stream exactly)
-        if n_tiles == 1:
-            pltpu.prng_seed(seed_ref[0], ti)
-        else:
-            # Mosaic accepts at most 2 seed values: fold (tile, step) into
-            # one unique per-grid-cell value
-            pltpu.prng_seed(seed_ref[0],
-                            pl.program_id(0) * pl.num_programs(1) + ti)
-        bits = pltpu.bitcast(
-            pltpu.prng_random_bits((L, ring_ref.shape[-1])), jnp.uint32)
-        action = (bits & jnp.uint32(max_order - 1)).astype(jnp.int32)
-    else:
-        action = act_ref[0]
-    orders_ref[:] = action if v2 else incoming + action
-
-    # 6. obs + reward (v0: inventory - backlog, beergame_env.py:180-181;
-    # v2: max_stock offset + capacity penalty, beergame2_env.py:111-112,
-    # :177-184)
-    reward = -jnp.sum(inv_cost * inventory + backlog_cost * backlog, axis=0)
-    if v2:
-        pen = (jnp.maximum(inventory - max_stock, 0)
-               + jnp.maximum(backlog - max_stock, 0))
-        reward = reward - jnp.sum(penalty * pen, axis=0)
-        obs_ref[0] = max_stock + inventory - backlog
-    else:
-        obs_ref[0] = inventory - backlog
-    reward_ref[0, 0] = reward
+__all__ = ["make_beergame_collect_pallas"]
 
 
 def make_beergame_collect_pallas(weeks: int, levels: int, B: int,
-                                 episodes: int = 1, mode: str = "random",
-                                 delay=2, init_delay: int = None,
-                                 init_ship: int = 4, init_orders: int = 4,
-                                 init_inv: int = 12, inv_cost: int = 1,
-                                 backlog_cost: int = 2, max_order: int = 16,
+                                 episodes: int = 1, delay=2,
+                                 init_delay: int = None, init_ship: int = 4,
+                                 init_orders: int = 4, init_inv=12,
+                                 inv_cost: int = 1, backlog_cost: int = 2,
                                  v2: bool = False, max_stock: int = 100,
                                  exceeded_capacity_penalty: int = 100,
                                  max_delay: int = None,
-                                 interpret: bool = False,
-                                 batch_tile=None):
-    """Trajectory-emitting fused beer-game rollout (v0 and v2).
+                                 batch_tile: int = DEFAULT_BATCH_TILE,
+                                 interpret: bool = False):
+    """Build the beer-game trajectory-collect kernel (v0 and v2).
 
-    Runs ``episodes`` back-to-back episodes in ONE kernel with in-kernel
-    auto-reset, writing each week's observation [L, B] and reward [B] to
-    HBM — the PPO-collection workload of ``bench.py``'s beergame configs
-    with zero per-step dispatch.  Semantics match
-    ``make_beergame_kernels(itype=int32)`` bit-for-bit: reference
-    beergame_env.py:66-138, and for ``v2=True`` beergame2_env.py:111-112,
-    :168, :177-184.
+    ``delay``: a constant shipment delay, or ``None`` for per-lane delay
+    tables (the v2 stochastic-delay variant, beergame2_env.py:87-92; pass
+    ``max_delay`` to size the pipeline).  ``init_delay`` is the reference's
+    prepended initial delay governing the initially in-transit shipments
+    (defaults to ``delay``, or 2 with per-lane delays).  ``init_inv`` is a
+    scalar or one value per level.  With S = episodes * weeks:
 
-    ``delay``: a constant scalar shipment delay, or ``None`` for PER-LANE
-    delay tables (the v2 stochastic-delay variant, beergame2_env.py:87-92;
-    pass ``max_delay`` to size the ring).  Signatures, S = episodes*weeks:
+    * constant delay -- ``run(demand, actions [S, L, B])``
+    * per-lane delays -- ``run(demand, delays, actions)``, ``delays``
+      ``[S, B]`` (or ``[S]``) int32, row s = week (s % weeks) + 1's delay
 
-    * constant delay — ``run(demand, seed)`` (random) /
-      ``run(demand, actions [S, L, B])`` (actions)
-    * per-lane delays — ``run(demand, delays, seed)`` /
-      ``run(demand, delays, actions)`` where ``delays`` is [S, B] (or
-      [S]) int32, row t = week (t % weeks)+1's delay of that episode
-
-    ``demand`` is [weeks]/[weeks, B] (tiled across episodes) or [S, B] for
-    per-episode stochastic tables.  Returns ``(obs [S, L, B],
-    reward [S, B])``.  mode='random' requires power-of-two ``max_order``
-    (exact bit-mask uniformity).
-
-    ``batch_tile`` (divisor of ``B``) tiles the env batch over lanes —
-    grid ``(B // batch_tile, S)`` with the week dim innermost — so large
-    batches compile (whole-B blocks OOMed the Mosaic compile helper at
-    B=65,536; VERDICT r4 missing-1).  mode='random' folds the tile index
-    into the seed; ``None``/``== B`` keeps the r4 grid and streams.
+    ``demand`` is ``[weeks]``/``[weeks, B]`` (tiled across episodes) or
+    ``[S, B]``.  Returns ``(obs [S, L, B], reward [S, B])`` int32.  ``B`` is
+    padded to a multiple of ``batch_tile`` (a power of two) inside the
+    wrapper.
     """
-    if mode == "random" and (max_order & (max_order - 1)) != 0:
-        raise ValueError("mode='random' requires power-of-two max_order")
+    Bt = int(batch_tile)
+    if Bt <= 0 or Bt & (Bt - 1):
+        raise ValueError(f"batch_tile {Bt} must be a power of two")
     per_lane = delay is None
     if per_lane:
         if max_delay is None:
             raise ValueError("per-lane delays need max_delay")
         if init_delay is None:
-            init_delay = 2              # the reference's prepended initial
-        ring = max(max_delay, init_delay) + 1
+            init_delay = 2
     else:
         if init_delay is None:
             init_delay = delay
         max_delay = delay
-        ring = max(delay, init_delay) + 1
-    S = episodes * weeks
-    Bfull = B
-    if batch_tile is not None and int(batch_tile) != B:
-        if B % int(batch_tile):
-            raise ValueError(f"batch_tile {batch_tile} must divide B {B}")
-        B = int(batch_tile)
-    nB = Bfull // B
-    kernel = functools.partial(
-        _collect_kernel, mode=mode, weeks=weeks, levels=levels,
-        delay=None if per_lane else delay, ring=ring, init_delay=init_delay,
-        init_ship=init_ship, init_orders=init_orders, init_inv=init_inv,
-        inv_cost=inv_cost, backlog_cost=backlog_cost, max_order=max_order,
-        v2=v2, max_stock=max_stock, penalty=exceeded_capacity_penalty,
-        max_delay=max_delay, n_tiles=nB)
-    if nB == 1:
-        def ixt(t):
-            return (t, 0, 0)
-    else:
-        def ixt(b, t):
-            return (t, 0, b)
-    # demand/delay rows carry a singleton middle axis: TPU lowering requires
-    # a block's last two dims to divide (8, 128) or equal the array's, and a
-    # (1, B) block over [S, B] does neither
-    in_specs = [pl.BlockSpec((1, 1, B), ixt)]
-    if per_lane:
-        in_specs.append(pl.BlockSpec((1, 1, B), ixt))
-    if mode == "random":
-        in_specs.append(pl.BlockSpec(memory_space=pltpu.SMEM))
-    else:
-        in_specs.append(pl.BlockSpec((1, levels, B), ixt))
+    L = int(levels)
+    W = int(weeks)
+    E = int(episodes)
+    S = E * W
+    D = max(int(max_delay), int(init_delay), 1)   # pipeline slots
+    nB = -(-B // Bt)
+    Bp = nB * Bt
+    i32 = jnp.int32
+    inv0 = np.broadcast_to(np.asarray(init_inv, np.int32), (L,))
+
+    def full(v):
+        return jnp.full((Bt,), v, i32)
+
+    def kernel(*refs):
+        if per_lane:
+            dem_ref, dly_ref, act_ref, obs_ref, rew_ref = refs
+        else:
+            dem_ref, act_ref, obs_ref, rew_ref = refs
+
+        def episode(e, carry):
+            # episode-initial state (beergame_env.py:39-52): the first
+            # init_delay weeks each receive init_ship
+            state = ([full(inv0[l]) for l in range(L)],
+                     [full(0) for _ in range(L)],
+                     [full(init_orders) for _ in range(L)],
+                     [[full(init_ship if j < init_delay else 0)
+                       for _ in range(L)] for j in range(D)])
+
+            def week(w, state):
+                inv, back, placed, pipe = state
+                s = e * W + w
+                # 1. receive this week's shipments
+                inventory = [inv[l] + pipe[0][l] for l in range(L)]
+                pipe = [list(row) for row in pipe[1:]] + [
+                    [full(0) for _ in range(L)]]
+                # 2. fill orders (incoming = customer demand, then the
+                # downstream level's order slip)
+                incoming = [dem_ref[s]] + placed[:-1]
+                to_fill = [incoming[l] + back[l] for l in range(L)]
+                deliver = [jnp.minimum(inventory[l], to_fill[l])
+                           for l in range(L)]
+                # 3. deliveries downstream + factory self-supply
+                down = deliver[1:] + [placed[-1]]
+                if per_lane:
+                    dl = dly_ref[s]
+                    inventory = [inventory[l] + jnp.where(dl == 0, down[l], 0)
+                                 for l in range(L)]
+                    for d in range(1, int(max_delay) + 1):
+                        pipe[d - 1] = [pipe[d - 1][l]
+                                       + jnp.where(dl == d, down[l], 0)
+                                       for l in range(L)]
+                elif delay == 0:
+                    inventory = [inventory[l] + down[l] for l in range(L)]
+                else:
+                    pipe[delay - 1] = [pipe[delay - 1][l] + down[l]
+                                       for l in range(L)]
+                # 4. record inventory / backlog
+                inventory = [inventory[l] - deliver[l] for l in range(L)]
+                backlog = [to_fill[l] - deliver[l] for l in range(L)]
+                # 5. place orders
+                action = [act_ref[s, l] for l in range(L)]
+                placed = action if v2 else [incoming[l] + action[l]
+                                            for l in range(L)]
+                # 6. observation and reward
+                reward = full(0)
+                for l in range(L):
+                    reward = reward - (inv_cost * inventory[l]
+                                       + backlog_cost * backlog[l])
+                    obs = inventory[l] - backlog[l]
+                    obs_ref[s, l] = max_stock + obs if v2 else obs
+                if v2:
+                    pen = full(0)
+                    for l in range(L):
+                        pen = pen + exceeded_capacity_penalty * (
+                            jnp.maximum(inventory[l] - max_stock, 0)
+                            + jnp.maximum(backlog[l] - max_stock, 0))
+                    reward = reward - pen
+                rew_ref[s] = reward
+                return inventory, backlog, placed, pipe
+
+            jax.lax.fori_loop(0, W, week, state)
+            return carry
+
+        jax.lax.fori_loop(0, E, episode, 0)
+
+    def lanes(*lead):
+        return pl.BlockSpec(lead + (Bt,),
+                            lambda i: (0,) * len(lead) + (i,))
+
+    in_specs = [lanes(S)] + ([lanes(S)] if per_lane else []) + [lanes(S, L)]
     call = pl.pallas_call(
         kernel,
-        grid=(S,) if nB == 1 else (nB, S),
-        out_shape=[jax.ShapeDtypeStruct((S, levels, Bfull), jnp.int32),
-                   jax.ShapeDtypeStruct((S, 1, Bfull), jnp.int32)],
+        grid=(nB,),
         in_specs=in_specs,
-        out_specs=[pl.BlockSpec((1, levels, B), ixt),
-                   pl.BlockSpec((1, 1, B), ixt)],
-        scratch_shapes=[
-            pltpu.VMEM((levels, B), jnp.int32),        # inventory
-            pltpu.VMEM((levels, B), jnp.int32),        # backlog
-            pltpu.VMEM((levels, B), jnp.int32),        # orders placed
-            pltpu.VMEM((ring, levels, B), jnp.int32),  # shipment ring
-        ],
+        out_specs=[lanes(S, L), lanes(S)],
+        out_shape=[jax.ShapeDtypeStruct((S, L, Bp), i32),
+                   jax.ShapeDtypeStruct((S, Bp), i32)],
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(
+            num_warps=num_warps_for(Bt), num_stages=1),
         interpret=interpret,
+        name="beergame_collect",
     )
-    B = Bfull                             # wrappers take full-width tables
 
-    def _table(x, rows):
-        """[rows]/[rows, B]/[S(, B)] -> [S, 1, B] int32 step-row table."""
-        x = jnp.asarray(x, jnp.int32)
+    def table(x):
+        """[W]/[W, B]/[S]/[S, B] -> [S, Bp] int32 week-row table."""
+        x = jnp.asarray(x, i32)
         if x.ndim == 1:
             x = jnp.broadcast_to(x[:, None], (x.shape[0], B))
-        if x.shape[0] == rows and rows != S:
-            x = jnp.tile(x, (episodes, 1))
-        return x[:, None]
+        if x.shape[0] == W and W != S:
+            x = jnp.tile(x, (E, 1))
+        return _pad_lanes(x[:S], Bp, 0)
 
-    if per_lane:
-        @jax.jit
-        def run(demand, delays, second):
-            demand = _table(demand, weeks)
-            delays = _table(delays, weeks)
-            if mode == "random":
-                second = jnp.asarray(second, jnp.int32).reshape((1,))
-            else:
-                second = jnp.asarray(second, jnp.int32)
-            obs, rew = call(demand, delays, second)
-            return obs, rew.squeeze(1)
-    else:
-        @jax.jit
-        def run(demand, second):
-            demand = _table(demand, weeks)
-            if mode == "random":
-                second = jnp.asarray(second, jnp.int32).reshape((1,))
-            else:
-                second = jnp.asarray(second, jnp.int32)
-            obs, rew = call(demand, second)
-            return obs, rew.squeeze(1)
+    def run(demand, *rest):
+        if len(rest) != (2 if per_lane else 1):
+            raise TypeError("run(demand, [delays,] actions): delays go with "
+                            "per-lane delay tables only")
+        args = [table(demand)]
+        if per_lane:
+            args.append(table(rest[0]))
+        args.append(_pad_lanes(jnp.asarray(rest[-1], i32)[:S], Bp, 0))
+        obs, rew = call(*args)
+        return obs[..., :B], rew[:, :B]
 
-    return run
+    return jax.jit(run)

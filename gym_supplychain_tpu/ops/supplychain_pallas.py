@@ -1,180 +1,101 @@
-"""Pallas TPU kernels: whole-episode supply-chain rollouts in one kernel.
+"""Pallas (Triton route) kernel: whole-episode supply-chain trajectory collect.
 
-Three kernel families over one shared phase implementation:
+One program owns ``Bt`` env lanes and runs ``episodes`` back-to-back
+``cc.T``-step episodes in a ``lax.fori_loop``, writing each step's
+observation ``[O, Bt]`` and reward ``[Bt]`` rows to the ``[S, O, B]`` /
+``[S, B]`` trajectory (S = episodes * T).  The grid runs over lane tiles
+only, so the time loop never leaves the program and the env state never
+leaves registers: stock and the in-transit pipeline are loop-carried Python
+lists of ``[Bt]`` rows, one per (node, product) and (arrival slot, node,
+product).  The pipeline is a shift register — ``pipe[j]`` arrives ``j + 1``
+steps from now, like ``core/step.py``'s dense pipeline — and shifting it is
+a renaming of list entries at trace time, so every slot access is static.
 
-* **Episode sweeps** (``make_supplychain_episode_pallas``): per-step rewards
-  only — Monte-Carlo evaluation with actions from the on-chip PRNG or a
-  table.  State buffers live in VMEM: stock ``[N, P, B]``, the in-transit
-  pipeline as a ring ``[R, N, P, B]`` (slot = t % R, R = H + 1).
-* **Greedy policy-in-the-loop** (``make_supplychain_policy_rollout_pallas``):
-  obs -> MLP actor on the MXU -> tanh(mu) -> env step, whole episode fused.
-* **Trajectory collection** (``make_supplychain_collect_pallas``): the PPO
-  workload — every grid step writes its trajectory row (observation and
-  reward; plus pre-tanh action, log-prob and value in policy mode) to HBM
-  output blocks, runs ``episodes`` back-to-back with in-kernel auto-reset at
-  every episode boundary, and draws ALL stochastic inputs (demand rows,
-  lead-time rows, action/exploration noise) from the on-chip PRNG via the
-  same inverse-CDF transforms as the stateless scan path (rng/device.py;
-  distribution parity pinned by tests/test_rng_distribution.py).  Table-mode
-  variants take precomputed demand/lead-time/action/noise tables instead for
-  step-exact parity testing against the scan engine.
-
-Semantics mirror core/step.py phase-for-phase (reference
+Inputs are the table-mode episode tables of the scan engine: demand rows
+``[S, R, P, B]``, lead-time rows ``[S, K, B]`` (stochastic lead-times only)
+and actions ``[S, A, B]`` in [-1, 1]; step ``s`` reads row ``s`` of each.
+Semantics follow ``core/step.py`` phase for phase (reference
 supplychain_env.py:208-396): arrivals -> stock-capacity penalty -> supply ->
-sorted-cut ship with processing/ship clipping (including the reference's
+sorted-cut ship with processing and ship clipping (including the reference's
 bug-compatible shared ship-capacity bookkeeping, SURVEY.md §2.1-4) ->
-retailer demand -> holding costs.
+retailer demand -> holding costs, with the same floating-point operations in
+the same order for the state, so observations match the scan engine to
+rounding and rewards to the association of their cost sum.
 
-Stochastic lead-times take the per-episode table ``[T, K, B]`` as a kernel
-input (or draw the rows in-kernel) and reproduce the reference's
-action-dependent column consumption (supplychain_env.py:252-254, :270,
-:344-348, :374-375; SURVEY.md §2.1-5): each node's supply column index
-advances only for supplied amounts > 0, and its transport columns start
-after the fired supplies, one per destination, shared across products.
-The table-driven modes reproduce this with per-use gathers hoisted before
-the env phases (``_per_use_lts``; the gathers exploit the bounded
-fired-supply counter — a STATIC base plus a counter in [0, n_sup[n]], so
-each is a small select, not a K-way one-hot).  The PRNG modes draw each
-use directly instead (``_lts_from_u`` on fused PRNG rows): the reference consumes a
-distinct iid column per use within a step, so per-use draws are
-distribution-identical and skip the gathers/counters entirely.
-
-Stream-compatibility note: in 'random'/'policy' collect modes the on-chip
-PRNG is seeded per grid iteration from ``(seed, iteration)``; since the
-RING-unrolled kernels (r3) a grid iteration covers RING consecutive steps,
-so seeded streams differ from pre-r3 releases (which seeded per step).
-Distribution parity is unaffected (tests/test_rng_distribution.py); only
-same-seed reproducibility across versions is not guaranteed.
-
-All node/product/destination loops are unrolled at trace time (they are
-small static constants of the compiled chain); the sorted cut uses an
-unrolled selection network over the ≤Dmax destination values, stable in
-destination order exactly like the reference's tuple sort.
+All node, product and destination loops are unrolled at trace time (they
+are small static constants of the compiled chain).  The sorted cut uses an
+unrolled selection network over the <= Dmax destination values, stable in
+destination order exactly like the reference's tuple sort.  Stochastic
+lead-times reproduce the reference's action-dependent column consumption
+(supplychain_env.py:252-254, :270, :344-348, :374-375; SURVEY.md §2.1-5)
+with bounded per-use selects: a column index is a static base plus the
+count of fired supplies at the node, which takes at most ``n_sup + 1``
+values.
 """
 from __future__ import annotations
-
-import functools
-import math
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from ..core.compile import CompiledChain
-from ..rng.device import poisson_clip_thresholds
 
-__all__ = ["make_supplychain_episode_pallas",
-           "make_supplychain_policy_rollout_pallas",
-           "make_supplychain_collect_pallas"]
+__all__ = ["make_supplychain_collect_pallas", "DEFAULT_BATCH_TILE"]
 
-# tanh-Gaussian policy constants (models/policy.py LOG_STD_MIN/MAX)
-_LOG_STD_MIN, _LOG_STD_MAX = -5.0, 2.0
+# Env lanes per program: one warp, one lane per thread.  4096 envs give 128
+# programs for the H100's 132 SMs; the tile sweep in PERF.md chose it.
+DEFAULT_BATCH_TILE = 32
 
 
-def _uniform_bits_to_01(bits):
-    """uint32 random bits -> float32 in [0, 1) (exponent-splice trick)."""
-    fbits = pltpu.bitcast(
-        jnp.bitwise_or(jnp.right_shift(bits, jnp.uint32(9)),
-                       jnp.uint32(0x3F800000)), jnp.float32)
-    return fbits - 1.0
+def num_warps_for(batch_tile: int) -> int:
+    """One env lane per thread: a warp covers 32 lanes."""
+    return max(1, min(4, batch_tile // 32))
 
 
-def _uniform_01(shape):
-    """Random floats in [0, 1) from the on-chip PRNG."""
-    return _uniform_bits_to_01(
-        pltpu.bitcast(pltpu.prng_random_bits(shape), jnp.uint32))
+def _pad_lanes(x, Bp, value):
+    """Pad the trailing env axis of ``x`` to ``Bp`` lanes with ``value``."""
+    pad = Bp - x.shape[-1]
+    if pad == 0:
+        return x
+    return jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, pad)],
+                   constant_values=value)
 
 
-def _uniform_pm1(shape):
-    """Random floats in [-1, 1) from the on-chip PRNG."""
-    return 2.0 * _uniform_01(shape) - 1.0
+def make_supplychain_collect_pallas(cc: CompiledChain, B: int,
+                                    episodes: int = 1,
+                                    batch_tile: int = DEFAULT_BATCH_TILE,
+                                    interpret: bool = False):
+    """Build the trajectory-collect kernel for a compiled chain.
 
-
-def _box_muller(u1, u2):
-    """Two uniforms in [0,1) -> one standard normal (distribution parity
-    with the scan path's ndtri/jax.random.normal draws; not stream parity)."""
-    r = jnp.sqrt(-2.0 * jnp.log1p(-u1))        # 1-u1 in (0, 1]
-    return r * jnp.cos((2.0 * math.pi) * u2)
-
-
-def _softplus(x):
-    """Numerically stable softplus for the tanh log-det correction."""
-    return jnp.maximum(x, 0.0) + jnp.log1p(jnp.exp(-jnp.abs(x)))
-
-
-def _demand_from_u(u, u2, cfg, te, T):
-    """Uniforms -> demand values for one product's demand config (the
-    in-kernel analogue of rng/device.py _demand_from_uniform; normals come
-    from Box-Muller instead of ndtri — same distribution).  ``u``/``u2``
-    [..., B] uniforms, ``te`` traced episode step, ``T`` horizon."""
-    if cfg.sen_peaks is None and cfg.std is None:
-        n = cfg.maxv - cfg.minv + 1
-        return jnp.floor(u * n) + cfg.minv
-    if cfg.sen_peaks is None:
-        d = _box_muller(u, u2) * cfg.std + (cfg.maxv + cfg.minv) / 2
-        return jnp.round(jnp.clip(d, cfg.minv, cfg.maxv))
-    std = 0.0 if cfg.std is None else cfg.std
-    if cfg.perturb_norm:
-        perturb = _box_muller(u, u2) * std
-    else:
-        lo, hi = int(-3 * std), int(3 * std)
-        perturb = jnp.floor(u * (hi - lo + 1)) + lo
-    half = (cfg.maxavg - cfg.minavg) / 2
-    base = cfg.minavg + half * (
-        1 + jnp.sin(cfg.sen_peaks * 2 * math.pi
-                    * te.astype(jnp.float32) / T))
-    return jnp.round(jnp.clip(base + perturb, cfg.minv, cfg.maxv))
-
-
-def _make_episode_runners(cc: CompiledChain, T: int, B: int,
-                          interpret: bool = False, unroll_mult=None,
-                          batch_tile=None, ablate=frozenset()):
-    """Build whole-episode rollout kernels for a compiled chain.
-
-    Returns ``(run_seeded, run_actions, build_policy_runner,
-    build_collect_runner)``.
-    Constant lead-times:
-    ``run_seeded(demands[T+1, R, P, B], seed)`` / ``run_actions(demands,
-    actions[T, A, B])``.  Stochastic lead-times additionally take the
-    per-episode table: ``run_seeded(demands, leadtimes[T, K, B], seed)`` /
-    ``run_actions(demands, leadtimes, actions)``.  All return per-step
-    rewards ``[T, B]`` float32.
-
-    ``batch_tile``: lane-tile width for the COLLECT kernels (VERDICT r4
-    missing-1).  When set (and < B), the collect grid becomes
-    ``(B // batch_tile, S // U)`` with the step dimension innermost — VMEM
-    state/scratch and every per-step block shrink to the tile width, so
-    arbitrarily large env batches compile (whole-B blocks OOMed the Mosaic
-    compile helper at B=65,536).  Each tile re-runs its episodes with the
-    tile index folded into the PRNG seed (independent streams per tile);
-    ``None``/``== B`` keeps the r4 single-tile grid and streams bit-exactly.
+    Returns ``run(demands, [leadtimes,] actions) -> (obs [S, O, B],
+    rewards [S, B])`` with S = episodes * cc.T; ``leadtimes`` is passed only
+    for chains with stochastic lead-times.  ``demands`` may carry extra
+    trailing rows (the scan engine's ``[T+1, R, P, B]`` table works for one
+    episode); every other table has at least S rows.  ``obs[s]`` is the
+    observation the action of step ``s`` was chosen on (before the step),
+    ``rewards[s]`` that step's reward; each episode starts from the reset
+    state.  ``B`` is padded to a multiple of ``batch_tile`` inside the
+    wrapper and the padding lanes are dropped from the outputs.
+    ``batch_tile`` must be a power of two (Triton block shapes).
     """
-    # ``ablate``: MEASUREMENT-ONLY phase stubs for the cost attribution in
-    # benchmarks/ntom_fused_profile.py — each named phase is replaced by a
-    # trivial stand-in so its marginal cost can be timed.  Any non-empty
-    # set produces a kernel with WRONG dynamics; the deployed paths all
-    # pass the default empty set.
-    ablate = frozenset(ablate)
-    _known = {"obs", "sortcut", "ship", "supply", "scatter", "prng"}
-    if not ablate <= _known:
-        raise ValueError(f"unknown ablate flags {ablate - _known}")
-    Bfull = B
-    if batch_tile is not None and int(batch_tile) != B:
-        if B % int(batch_tile):
-            raise ValueError(f"batch_tile {batch_tile} must divide B {B}")
-        B = int(batch_tile)
-    nB = Bfull // B
+    Bt = int(batch_tile)
+    if Bt <= 0 or Bt & (Bt - 1):
+        raise ValueError(f"batch_tile {Bt} must be a power of two")
+    T = int(cc.T)
+    E = int(episodes)
+    S = E * T
+    nB = -(-B // Bt)
+    Bp = nB * Bt
     N, P, Dmax, A, R, K = cc.N, cc.P, cc.Dmax, cc.A, cc.R, cc.K
+    H = int(cc.H)
     stochastic = bool(cc.stochastic_leadtimes)
     Lavg, Lmax = int(cc.Lavg), int(cc.Lmax)
-    RING = int(cc.H) + 1
     O = int(cc.obs_dim)
     f32 = jnp.float32
     i32 = jnp.int32
 
-    is_retailer = np.asarray(cc.is_retailer)
     retailer_idx = [int(i) for i in np.asarray(cc.retailer_idx)]
     is_factory = np.asarray(cc.is_factory)
     has_supply = np.asarray(cc.has_supply)
@@ -191,322 +112,179 @@ def _make_episode_runners(cc: CompiledChain, T: int, B: int,
     edge_mask = np.asarray(cc.edge_mask)
     sup_act_idx = np.maximum(cc.sup_act_idx, 0)
     ship_act_idx = np.maximum(cc.ship_act_idx, 0)
-    lt_base = np.asarray(cc.lt_base, np.int32)  # i32: TPU has no 64-bit ints
-    init_stock = np.asarray(cc.initial_stock, np.float32)      # [N,P]
-    init_pipe = np.asarray(cc.init_pipe, np.float32)           # [H,N,P]
-    c_stock_pen = float(cc.c_stock_pen)
-    c_proc_pen = float(cc.c_proc_pen)
-    c_ship_pen = float(cc.c_ship_pen)
-    c_unmet = float(cc.c_unmet)
+    lt_base = np.asarray(cc.lt_base, np.int64)
+    init_stock = np.asarray(cc.initial_stock, np.float32)      # [N, P]
+    init_pipe = np.asarray(cc.init_pipe, np.float32)           # [H, N, P]
+    c_stock_pen = np.float32(cc.c_stock_pen)
+    c_proc_pen = np.float32(cc.c_proc_pen)
+    c_ship_pen = np.float32(cc.c_ship_pen)
+    c_unmet = np.float32(cc.c_unmet)
+    dst_of = {(int(s), int(d)): int(cc.edge_dst[s, d])
+              for s, d in zip(*np.nonzero(edge_mask))}
 
-    e_src, e_di = np.nonzero(edge_mask)
-    e_dst = cc.edge_dst[e_src, e_di]
-    edges = [(int(s), int(d), int(t)) for s, d, t in zip(e_src, e_di, e_dst)]
-    dst_of = {(s, d): t2 for s, d, t2 in edges}
-
-    # observation normalizers (mirrors core/step.py obs_fn)
+    # observation normalizers (core/step.py obs_fn)
     max_ship = np.asarray(cc.max_ship, np.float32)
-    ms_safe = np.where(max_ship > 0, max_ship, 1.0)
+    ms_safe = np.where(max_ship > 0, max_ship, np.float32(1.0))
     ms_ok = max_ship > 0
+    tail_div = ms_safe * np.float32(Lmax - (Lavg - 1))
     dem_min = np.asarray(cc.dem_min, np.float32)
     dem_rangev = np.asarray(cc.dem_range, np.float32)
+    # supply (n, p) pairs per node: bounds the fired-supply counter
+    n_sup = has_supply.sum(axis=1).astype(int)
 
-    lt_cdf = poisson_clip_thresholds(Lavg - 1, Lmax) if stochastic else None
+    def zeros():
+        return jnp.zeros((Bt,), f32)
 
-    # supplies per node: the fired-supply counter nf is bounded by the
-    # number of supply (n, p) pairs at the node, so column gathers at
-    # base + nf only ever touch base..base+n_sup[n] — select over those
-    # few candidates instead of all K columns (for single-product chains
-    # that is a 2-way select vs a K-way one-hot; the K-wide gathers were
-    # ~40% of the ntom collect kernel's per-step op count)
-    n_sup = np.asarray(has_supply, np.int64).sum(axis=1).astype(int)
+    def _reset_state():
+        """Reference reset (:630-682): initial stock + seeded pipeline."""
+        stock = [[jnp.full((Bt,), init_stock[n, p], f32) for p in range(P)]
+                 for n in range(N)]
+        pipe = [[[jnp.full((Bt,), init_pipe[j, n, p], f32) for p in range(P)]
+                 for n in range(N)] for j in range(H)]
+        return stock, pipe
 
-    def _gather_lt_nf(lt_row, base, nf, nmax):
-        """lt_row[base + nf] with STATIC base and nf in [0, nmax] — the
-        bounded-counter fast path of _gather_lt (identical result: the
-        original clips to K-1, and base + nmax <= K-1 + slack is clipped
-        the same way here)."""
-        out = lt_row[min(int(base), K - 1)]
-        for c in range(1, int(nmax) + 1):
-            out = jnp.where(nf == c, lt_row[min(int(base) + c, K - 1)], out)
-        return out
-
-    # per-use lead-time bookkeeping (stochastic mode): every potential
-    # consumer of a lead-time value within one step — supply (n, p) pairs
-    # and live (n, d) transport edges.  The env phases consume PER-USE
-    # values; computing them is the caller's job (table gathers for the
-    # parity paths, direct iid draws for the PRNG paths).
-    sup_uses = [(n, p) for n in range(N) for p in range(P)
-                if has_supply[n, p]]
-    dst_uses = [(n, d) for n in range(N) if has_ship[n].any()
-                for d in range(Dmax) if edge_mask[n, d]]
-    nU = len(sup_uses) + len(dst_uses)
-
-    def _per_use_lts(lt_row, a):
-        """Reference action-dependent column consumption, hoisted OUT of
-        the env phases (supplychain_env.py:252-254, :270, :344-348,
-        :374-375; SURVEY.md §2.1-5): each node's supply column index
-        advances only for FIRED supplies (amount > 0), and its transport
-        columns start after the fired supplies, one per destination, shared
-        across products.  Fired-ness depends only on the (already scaled)
-        actions ``a`` — not on env state — so the gathers can run before
-        the phases.  Returns ``(m_sup, m_dst)`` keyed [n][p] / [n][d]:
-        each entry a list of ``Lmax`` boolean masks (``lt == L`` for
-        L = 1..Lmax) — the env phases consume masks, never raw values."""
-        m_sup = [[None] * P for _ in range(N)]
-        m_dst = [[None] * Dmax for _ in range(N)]
-
-        def masks(lt):
-            return [lt == L for L in range(1, Lmax + 1)]
-
-        for n in range(N):
-            nf = jnp.zeros((B,), i32)
+    def _obs_rows(stock, pipe, dem, te):
+        """Observation rows (core/step.py obs_fn) of the state at episode
+        step ``te``; ``dem[r][p]`` is the demand row it shows."""
+        rows = []
+        for r in range(R):
             for p in range(P):
-                if not has_supply[n, p]:
-                    continue
-                amt = a[sup_act_idx[n, p]] * supply_cap[n, p]
-                m_sup[n][p] = masks(_gather_lt_nf(lt_row, lt_base[n], nf,
-                                                  n_sup[n]))
-                nf = nf + (amt > 0).astype(i32)
-            if has_ship[n].any():
-                for d in range(Dmax):
-                    if edge_mask[n, d]:
-                        m_dst[n][d] = masks(_gather_lt_nf(
-                            lt_row, int(lt_base[n] + d), nf, n_sup[n]))
-        return m_sup, m_dst
+                rows.append((dem[r][p] - dem_min[p]) / dem_rangev[p])
+        for n in range(N):
+            for p in range(P):
+                rows.append(stock[n][p] / stock_cap[n, p])
+            for p in range(P):
+                for j in range(Lavg - 1):
+                    rows.append(pipe[j][n][p] / ms_safe[n, p]
+                                if ms_ok[n, p] else zeros())
+                tail = pipe[Lavg - 1][n][p]
+                for j in range(Lavg, H):
+                    tail = tail + pipe[j][n][p]
+                rows.append(tail / tail_div[n, p] if ms_ok[n, p] else zeros())
+        remaining = (T - te).astype(f32) / T
+        rows.append(jnp.full((Bt,), remaining, f32))
+        assert len(rows) == O, (len(rows), O)
+        return [jnp.clip(2.0 * x - 1.0, -1.0, 1.0) for x in rows]
 
-    def _lts_from_u(u):
-        """Uniform rows [nU, B] -> per-use lead-time MASKS, keyed like
-        ``_per_use_lts``'s output.
+    def _step(stock, pipe, a, lt_col, dem):
+        """One env step for the lane tile.
 
-        The masks come straight from the CDF thresholds as bands —
-        ``lt == L``  ⟺  ``cdf[L-2] <= u < cdf[L-1]`` — instead of first
-        materializing integer lead-times and re-comparing per use: with
-        ``ge[j] = u >= cdf[j]`` (and cdf non-decreasing, so ge[j] ⊆
-        ge[j-1]), band L is ``ge[L-2] ^ ge[L-1]``.  That is ~6 vector ops
-        on the stacked [nU, B] rows replacing the int construction plus
-        ``Lmax`` equality compares per use (~56 per ntom step) — identical
-        per-lane booleans, measurably cheaper."""
-        J = lt_cdf.shape[0]
-        if J == 0:                       # Lmax == 1: every lead-time is 1
-            ones = jnp.ones((nU, B), jnp.bool_)
-            bands = [ones]
-        else:
-            ge = [u >= lt_cdf[j] for j in range(J)]
-            bands = [jnp.logical_not(ge[0])]
-            for j in range(1, J):
-                bands.append(jnp.logical_xor(ge[j - 1], ge[j]))
-            bands.append(ge[J - 1])
-        m_sup = [[None] * P for _ in range(N)]
-        m_dst = [[None] * Dmax for _ in range(N)]
-        for j, (n, p) in enumerate(sup_uses):
-            m_sup[n][p] = [b[j] for b in bands]
-        off = len(sup_uses)
-        for j, (n, d) in enumerate(dst_uses):
-            m_dst[n][d] = [b[off + j] for b in bands]
-        return m_sup, m_dst
+        ``a(i)`` returns action row ``i`` already mapped to [0, 1];
+        ``lt_col(k)`` lead-time table column ``k`` of this step (stochastic
+        only); ``dem[r][p]`` this step's demand rows.  Returns
+        ``(stock, pipe, reward)``."""
+        acc = zeros()
 
+        def spend(coeff, term):
+            nonlocal acc
+            acc = acc - coeff * term
 
-    # -- shared phase implementation (all kernels; op order is bit-pinned
-    # against core/step.py by the parity tests) ----------------------------
-    def _env_phases(stock_ref, ring_ref, a, lts, dem_row, t, tb=None,
-                    bounded_actions=False, exact_fp=True):
-        """One env step: mutates stock/ring refs, returns reward [B].
+        def select_lt(base, nf, nmax):
+            """Column ``base + nf`` with static base and nf in [0, nmax]
+            (indices clipped to K-1 like core/step.py)."""
+            out = lt_col(min(base, K - 1))
+            for c in range(1, nmax + 1):
+                out = jnp.where(nf == c, lt_col(min(base + c, K - 1)), out)
+            return out
 
-        ``a`` [A, B] already in [0, 1]; ``dem_row`` [R, P, B];
-        ``lts = (m_sup, m_dst)`` PER-USE lead-time masks (lists of Lmax
-        [B] bools per use, from ``_per_use_lts`` table gathers or
-        ``_lts_from_u`` draws) in stochastic mode, else None; ``t`` traced
-        step.  ``bounded_actions``: the caller statically guarantees every
-        action value lies in [0, 1] (PRNG uniforms, tanh outputs) — the
-        sorted cut's first clamp ``min(lo*avail, avail)`` then provably
-        never binds (0 <= lo <= 1 and avail >= 0 make the rounded product
-        <= avail) and is elided; table modes pass False so out-of-range
-        inputs still clamp exactly like the reference.
-        ``tb``: when the caller statically knows ``t % RING`` (the
-        RING-unrolled collect kernel), the static value — every ring access
-        then lowers to a static VMEM address instead of a dynamic slice,
-        which is the difference between ~9 and ~3 us/step on the
-        stochastic-lead-time configs."""
-        m_sup, m_dst = lts if stochastic else (None, None)
-
-        def rslot(off):
-            return (tb + off) % RING if tb is not None else (t + off) % RING
-
-        slot = rslot(0)
-        # running cost accumulator.  (A pairwise-tree reassociation of the
-        # ~60 cost terms was tried in r5 and measured 10% SLOWER — keeping
-        # every term live until a final tree sum costs more in VMEM
-        # pressure than the serial dependency chain, which Mosaic already
-        # interleaves with independent work.)
-        #
-        # Every cost is ``scalar coefficient x vector term``.  The exact
-        # path (``exact_fp``, parity modes) multiplies and subtracts each
-        # term inline in the reference's order.  The fast path (PRNG
-        # modes, no stream/bit parity obligation) groups terms by EQUAL
-        # coefficient, sums each group serially in spend order, and scales
-        # once — on ntom that folds ~24 same-coefficient penalty muls and
-        # their subs into one (~45 fewer vector ops per step).  Dynamics
-        # (stocks, pipelines, gates, observations' inputs) are untouched;
-        # only the reward's float association changes (~1e-7 relative).
-        acc = [jnp.zeros((B,), f32)]
-        groups = {}
-
-        def spend(x):
-            acc[0] = acc[0] - x
-
-        def spend2(coeff, term):
-            if exact_fp:
-                acc[0] = acc[0] - coeff * term
-            else:
-                c = float(coeff)
-                if c != 0.0:
-                    # running per-coefficient sums: one live register per
-                    # distinct coefficient (a handful), short independent
-                    # add chains (deferring all terms to a final flush was
-                    # measured slower — 50 live terms cost more in VMEM
-                    # pressure than the muls they save)
-                    groups[c] = term if c not in groups else groups[c] + term
-
-        # phase 1+2: arrivals, stock-capacity penalty ----------------------
+        # phase 1+2: arrivals, stock-capacity penalty ------------------
         stocks = []
         for n in range(N):
             cols = []
             for p in range(P):
-                s = stock_ref[n, p] + ring_ref[slot, n, p]
+                s = stock[n][p] + pipe[0][n][p]
                 if np.isfinite(stock_cap[n, p]):
-                    excess = jnp.maximum(s - stock_cap[n, p], 0.0)
-                    spend2(c_stock_pen, excess)
+                    spend(c_stock_pen, jnp.maximum(s - stock_cap[n, p], 0.0))
                     s = jnp.minimum(s, stock_cap[n, p])
                 cols.append(s)
             stocks.append(cols)
-        ring_ref[slot] = jnp.zeros((N, P, B), f32)
+        # shift: pipe[j] now arrives j + 1 steps after this one
+        pipe = [[list(row) for row in slot] for slot in pipe[1:]] + \
+            [[[zeros() for _ in range(P)] for _ in range(N)]]
 
-        # SHIP pipeline pushes accumulate as {(arrival_delay, n, p):
-        # amount} in edge order and are written back with one ring add
-        # per (delay, n, p) at the end of the step — supply pushes go to
-        # the ring DIRECTLY first, mirroring the scan engine's separate
-        # phase-3 and phase-4 adds (bit-exact parity requires the same
-        # FP add association)
+        # phase 3: supply (:244-259) -----------------------------------
+        nfired = [jnp.zeros((Bt,), i32) for _ in range(N)]
+        for n in range(N):
+            for p in range(P):
+                if not has_supply[n, p]:
+                    continue
+                amt = a(sup_act_idx[n, p]) * supply_cap[n, p]
+                spend(supply_cost[n, p], amt)
+                fired = amt > 0
+                pushed = jnp.where(fired, amt, 0.0)
+                if stochastic:
+                    lt = select_lt(int(lt_base[n]), nfired[n], n_sup[n])
+                    for L in range(1, Lmax + 1):
+                        pipe[L - 1][n][p] = pipe[L - 1][n][p] + jnp.where(
+                            lt == L, pushed, 0.0)
+                else:
+                    pipe[Lavg - 1][n][p] = pipe[Lavg - 1][n][p] + pushed
+                nfired[n] = nfired[n] + fired.astype(i32)
+
+        # phase 4: ship (:262-375).  Pushes collect per (delay, node,
+        # product) in edge order and land after the supply pushes, like
+        # core/step.py's separate supply and delivery adds.
         upd = {}
 
-        def push(L, n, p, amt):
-            # first push stores directly (``0 + amt`` is bitwise ``amt`` —
-            # amt is a non-negative where/max result, never -0 — but the
-            # splat-zero add is not always folded by Mosaic)
-            key = (L, n, p)
+        def push(j, n, p, amt):
+            key = (j, n, p)
             upd[key] = amt if key not in upd else upd[key] + amt
 
-        # phase 3: supply (:244-259).  Stochastic mode: the per-use
-        # lead-time values were computed by the caller (gathers or draws).
         for n in range(N):
-            for p in range(P):
-                if not has_supply[n, p] or "supply" in ablate:
-                    continue
-                amt = a[sup_act_idx[n, p]] * supply_cap[n, p]
-                spend2(supply_cost[n, p], amt)
-                # amt = action * capacity is >= 0 (action in [0, 1]), so
-                # the reference's fired gate folds away entirely:
-                # where(amt > 0, amt, 0) == amt
-                if stochastic:
-                    m = m_sup[n][p]
-                    for L in range(1, Lmax + 1):
-                        s = rslot(L)
-                        ring_ref[s, n, p] = ring_ref[s, n, p] + jnp.where(
-                            m[L - 1], amt, 0.0)
-                else:
-                    s = rslot(Lavg)
-                    ring_ref[s, n, p] = ring_ref[s, n, p] + amt
-
-        # phase 4: ship (:262-375) ------------------------------------
-        for n in range(N):
-            if not has_ship[n].any() or "ship" in ablate:
+            if not has_ship[n].any():
                 continue
             if stochastic:
-                # per-destination masks shared across the product loop (the
-                # transport lead-time is per destination, not per product)
-                lt_eq = {d: m_dst[n][d]
-                         for d in range(Dmax) if edge_mask[n, d]}
-            avail_proc = jnp.full((B,), proc_cap[n], f32)
-            # P == 1: the shared ship capacity is never decremented (see
-            # below), so each edge's available capacity is the static
-            # constant — selects/compares below use the scalar directly
+                lt_dst = {d: select_lt(int(lt_base[n]) + d, nfired[n],
+                                       n_sup[n])
+                          for d in range(Dmax) if edge_mask[n, d]}
+            avail_proc = jnp.full((Bt,), proc_cap[n], f32)
+            # one product: the shared ship capacity is never decremented
+            # before it is read, so each edge's capacity stays the static
+            # constant (cap >= 0 is validated in core/compile.py)
             avail_ship = [float(ship_cap_edge[n, d]) if P == 1 else
-                          jnp.full((B,), ship_cap_edge[n, d], f32)
+                          jnp.full((Bt,), ship_cap_edge[n, d], f32)
                           for d in range(Dmax)]
             for p in range(P):
-                # edge_mask is static: dead destinations take a zeros
-                # vector at trace time instead of a folded select
-                dvals = [(a[ship_act_idx[n, p, d]] if edge_mask[n, d]
-                          else jnp.zeros((B,), f32))
-                         if has_ship[n, p] else jnp.zeros((B,), f32)
+                dvals = [a(ship_act_idx[n, p, d])
+                         if has_ship[n, p] and edge_mask[n, d] else zeros()
                          for d in range(Dmax)]
                 avail_mat = stocks[n][p]
-                # sorted-cut (SC_Action.apply SHIP, :58-96): sort values
-                # ascending, ties by destination index; destination d's
-                # cut is the gap to its sort predecessor.  pred_d =
-                # max{v_e : (v_e, e) <lex (v_d, d)} and rank_d = |{e :
-                # (v_e, e) <lex (v_d, d)}| by unrolled pairwise passes,
-                # then the reference's SEQUENTIAL cumulative clamp over
-                # sorted positions (:86-87) with one-hot selection —
-                # the identical FP ops in the identical order as
-                # core/step.py, so results are bit-exact vs the scan
-                # engine (the clamp binds only on float rounding, but a
-                # single-ULP `amounts` difference flips the branchy
-                # capacity bookkeeping downstream, so op order matters).
-                # D <= 2 take specialized select forms with the SAME
-                # per-lane FP op sequence at ~half the vector ops (the
-                # selects themselves never round).
-                if "sortcut" in ablate:
-                    # stand-in: per-destination linear cuts, no sort/rank
-                    amounts = [jnp.minimum(dvals[d] * avail_mat, avail_mat)
-                               for d in range(Dmax)]
-                elif Dmax == 1:
-                    # pred = 0, rank = 0: cut = v*avail clamped once
-                    # (v - 0.0 == v exactly; dvals >= 0 so no -0 case);
-                    # bounded actions make the clamp provably dead
-                    cut0 = dvals[0] * avail_mat
-                    amounts = [cut0 if bounded_actions
-                               else jnp.minimum(cut0, avail_mat)]
+                # sorted cut (SC_Action.apply SHIP, :58-96): sort ascending,
+                # ties by destination index; each cut is the gap to the
+                # sort predecessor, then the reference's sequential clamp
+                # over sorted positions (:86-87)
+                if Dmax == 1:
+                    amounts = [jnp.minimum(dvals[0] * avail_mat, avail_mat)]
                 elif Dmax == 2:
-                    # sort the two values (min/max tie-break matches the
-                    # reference's stable tuple sort: swap strictly when
-                    # v1 < v0), cut lo at (lo - 0)*avail and hi at
-                    # (hi - lo)*avail — the identical FP ops the
-                    # select-by-rank form computed, minus the redundant
-                    # predecessor selects
                     v0, v1 = dvals
-                    swap = v1 < v0          # rank(d0) == 1 iff swap
+                    swap = v1 < v0
                     lo = jnp.where(swap, v1, v0)
                     hi = jnp.where(swap, v0, v1)
-                    cut_lo = lo * avail_mat
-                    amt_lo = (cut_lo if bounded_actions
-                              else jnp.minimum(cut_lo, avail_mat))
+                    amt_lo = jnp.minimum(lo * avail_mat, avail_mat)
                     amt_hi = jnp.minimum((hi - lo) * avail_mat,
                                          avail_mat - amt_lo)
                     amounts = [jnp.where(swap, amt_hi, amt_lo),
                                jnp.where(swap, amt_lo, amt_hi)]
                 else:
-                    cuts = [None] * Dmax
-                    ranks = [None] * Dmax
+                    cuts, ranks = [], []
                     for d in range(Dmax):
-                        pred = jnp.zeros((B,), f32)
-                        rank = jnp.zeros((B,), i32)
+                        pred = jnp.full((Bt,), -jnp.inf, f32)
+                        rank = jnp.zeros((Bt,), i32)
                         for e in range(Dmax):
                             if e == d:
                                 continue
                             before = (dvals[e] <= dvals[d]) if e < d else \
-                                     (dvals[e] < dvals[d])
-                            pred = jnp.where(before,
-                                             jnp.maximum(pred, dvals[e]),
-                                             pred)
+                                (dvals[e] < dvals[d])
+                            pred = jnp.maximum(
+                                pred, jnp.where(before, dvals[e], -jnp.inf))
                             rank = rank + before.astype(i32)
-                        cuts[d] = (dvals[d] - pred) * avail_mat
-                        ranks[d] = rank
+                        pred = jnp.where(rank == 0, 0.0, pred)
+                        cuts.append((dvals[d] - pred) * avail_mat)
+                        ranks.append(rank)
                     availr = avail_mat
-                    amounts = [jnp.zeros((B,), f32) for _ in range(Dmax)]
+                    amounts = [zeros() for _ in range(Dmax)]
                     for k in range(Dmax):
-                        cut_k = jnp.zeros((B,), f32)
+                        cut_k = zeros()
                         for d in range(Dmax):
                             cut_k = cut_k + jnp.where(ranks[d] == k,
                                                       cuts[d], 0.0)
@@ -515,31 +293,21 @@ def _make_episode_runners(cc: CompiledChain, T: int, B: int,
                         for d in range(Dmax):
                             amounts[d] = amounts[d] + jnp.where(
                                 ranks[d] == k, amt_k, 0.0)
+                # dead destinations join the cut with value 0 but ship
+                # nothing (core/step.py masks them after the cut)
+                amounts = [amt if edge_mask[n, d] else zeros()
+                           for d, amt in enumerate(amounts)]
 
                 # processing clip (factories, :298-310)
                 if is_factory[n]:
                     clipped = []
                     for d in range(Dmax):
                         ai = amounts[d]
-                        if bounded_actions:
-                            # amounts >= 0 and avail_proc >= 0 statically
-                            # (it only ever decrements to exactly 0), so
-                            # ai > avail_proc already implies ai > 0 and
-                            # the gated decrement equals ai2 exactly
-                            # (ai == 0 makes ai2 == 0 either way)
-                            over = ai > avail_proc
-                            spend2(c_proc_pen, jnp.where(
-                                over, ai - avail_proc, 0.0))
-                            ai2 = jnp.where(over, avail_proc, ai)
-                            avail_proc = avail_proc - ai2
-                        else:
-                            gate = ai > 0
-                            over = gate & (ai > avail_proc)
-                            spend2(c_proc_pen, jnp.where(
-                                over, ai - avail_proc, 0.0))
-                            ai2 = jnp.where(over, avail_proc, ai)
-                            avail_proc = avail_proc - jnp.where(gate, ai2,
-                                                                0.0)
+                        gate = ai > 0
+                        over = gate & (ai > avail_proc)
+                        spend(c_proc_pen, jnp.where(over, ai - avail_proc, 0.0))
+                        ai2 = jnp.where(over, avail_proc, ai)
+                        avail_proc = avail_proc - jnp.where(gate, ai2, 0.0)
                         clipped.append(ai2)
                     to_ship = [c / proc_ratio[n, p] for c in clipped]
                     amounts = clipped
@@ -547,772 +315,126 @@ def _make_episode_runners(cc: CompiledChain, T: int, B: int,
                     to_ship = amounts
 
                 # ship clip, bug-compatible bookkeeping (:312-328)
-                leaving = jnp.zeros((B,), f32)
+                leaving = zeros()
                 for d in range(Dmax):
                     if not edge_mask[n, d]:
                         continue
                     a2 = to_ship[d]
                     if P == 1 and not np.isfinite(ship_cap_edge[n, d]):
-                        # unbounded static capacity: the clip gate is
-                        # statically false (a2 > inf), the penalty term
-                        # exactly zero, and a2c == a2
-                        a2c = a2
-                        raw = amounts[d]
-                    elif P == 1:
-                        # static scalar capacity c >= 0 (never decremented
-                        # with one product): a2 > c already implies a2 > 0
+                        a2c, raw = a2, amounts[d]
+                    else:
                         cap = avail_ship[d]
-                        gate2 = a2 > cap
-                        spend2(c_ship_pen, jnp.where(gate2, a2 - cap, 0.0))
+                        gate2 = (a2 > cap) if P == 1 else (a2 > 0) & (a2 > cap)
+                        spend(c_ship_pen, jnp.where(gate2, a2 - cap, 0.0))
                         a2c = jnp.where(gate2, cap, a2)
                         raw = jnp.where(
                             gate2,
-                            a2c * (proc_ratio[n, p] if is_factory[n]
-                                   else 1.0),
+                            a2c * proc_ratio[n, p] if is_factory[n] else a2c,
                             amounts[d])
-                    else:
-                        gate2 = (a2 > 0) & (a2 > avail_ship[d])
-                        spend2(c_ship_pen, jnp.where(
-                            gate2, a2 - avail_ship[d], 0.0))
-                        a2c = jnp.where(gate2, avail_ship[d], a2)
-                        raw = jnp.where(
-                            gate2,
-                            a2c * (proc_ratio[n, p] if is_factory[n]
-                                   else 1.0),
-                            amounts[d])
-                        # the bug-compatible shared-capacity decrement is
-                        # only ever read by LATER products' gates (SURVEY
-                        # §2.1-4); with one product it is dead
-                        avail_ship[d] = avail_ship[d] - jnp.where(
-                            gate2, raw, 0.0)
+                        if P > 1:
+                            avail_ship[d] = cap - jnp.where(gate2, raw, 0.0)
                     leaving = leaving + raw
-                    spend2(ship_cost[n, p, d], a2c)
+                    spend(ship_cost[n, p, d], a2c)
+                    # deliver only positive amounts (:343-348)
+                    pushed = jnp.where(a2c > 0, a2c, 0.0)
                     dst = dst_of[(n, d)]
-                    # deliver into the destination pipeline (push only
-                    # if > 0, :343-348); a2c can be negative once the
-                    # bug-compatible bookkeeping drives avail_ship below
-                    # zero (P > 1 only — with one product and bounded
-                    # actions the clip result is a select between
-                    # a2 >= 0 and a static cap >= 0, so the mask-fold max
-                    # is dropped exactly)
-                    a2cp = (a2c if P == 1 and bounded_actions
-                            else jnp.maximum(a2c, 0.0))
                     if stochastic:
                         for L in range(1, Lmax + 1):
-                            push(L, dst, p,
-                                 jnp.where(lt_eq[d][L - 1], a2cp, 0.0))
+                            push(L - 1, dst, p,
+                                 jnp.where(lt_dst[d] == L, pushed, 0.0))
                     else:
-                        push(Lavg, dst, p, a2cp)
+                        push(Lavg - 1, dst, p, pushed)
                 stocks[n][p] = avail_mat - leaving
                 if is_factory[n]:
-                    spend2(proc_cost[n, p], leaving)
+                    spend(proc_cost[n, p], leaving)
 
-        # phase 5: retailer demand (:378-387) -------------------------
+        # phase 5: retailer demand (:378-387) --------------------------
         for ri, n in enumerate(retailer_idx):
             for p in range(P):
-                d = dem_row[ri, p]
-                ful = jnp.minimum(stocks[n][p], d)
+                ful = jnp.minimum(stocks[n][p], dem[ri][p])
                 stocks[n][p] = stocks[n][p] - ful
-                spend2(c_unmet, d - ful)
+                spend(c_unmet, dem[ri][p] - ful)
 
-        # phase 6: holding costs (:389-394) + state writeback ---------
+        # phase 6: holding costs (:389-394) ----------------------------
         for n in range(N):
             for p in range(P):
-                spend2(stock_cost[n, p], stocks[n][p])
-                stock_ref[n, p] = stocks[n][p]
-        # scatter pipeline pushes; arrival at t+L -> ring slot (t+L)%RING
-        if "scatter" not in ablate:
-            for (L, n, p), amt in upd.items():
-                s = rslot(L)
-                ring_ref[s, n, p] = ring_ref[s, n, p] + amt
+                spend(stock_cost[n, p], stocks[n][p])
+        for (j, n, p), amt in upd.items():
+            pipe[j][n][p] = pipe[j][n][p] + amt
+        return stocks, pipe, acc
 
-        # fast path: flush the coefficient groups (summed in spend order
-        # within each group, groups in first-spend order)
-        for c, tot in groups.items():
-            acc[0] = acc[0] - c * tot
-
-        return acc[0]
-
-    def _episode_init(stock_ref, ring_ref):
-        """Reference reset (:630-682): initial stock + seeded pipeline."""
-        for n in range(N):
-            for p in range(P):
-                stock_ref[n, p] = jnp.full((B,), init_stock[n, p], f32)
-        for r in range(RING):
-            for n in range(N):
-                for p in range(P):
-                    v = init_pipe[r - 1, n, p] \
-                        if 1 <= r <= init_pipe.shape[0] else 0.0
-                    # init_pipe[j] arrives at t=1+j -> ring slot 1+j
-                    ring_ref[r, n, p] = jnp.full((B,), v, f32)
-
-    def _obs_build(stock_ref, ring_ref, dem, t, te, tb=None,
-                   exact_fp=True):
-        """Observation [O, B] from live VMEM state (mirrors core/step.py
-        obs_fn: state at episode step te, pipe[j] = ring[(t + j) % RING]).
-
-        ``dem`` [R, P, B] current demand row; ``te`` episode step (for the
-        remaining-time feature); ``t = te + 1``; ``tb`` the static value of
-        ``t % RING`` when the caller knows it (see _env_phases).
-        ``exact_fp``: parity modes divide by the normalizers exactly like
-        the reference (:433); PRNG modes multiply by the precomputed
-        reciprocals instead (~1 ULP per feature, VPU division is a
-        multi-op sequence)."""
-
-        def rslot(off):
-            return (tb + off) % RING if tb is not None else (t + off) % RING
-
-        if "obs" in ablate:                # measurement stub
-            return jnp.zeros((O, B), f32)
-
-        def norm(x, c):
-            # x / c, or x * (1/c) on the fast path (1/inf == 0 matches
-            # the reference's x / inf -> 0 for unbounded capacity)
-            return x / c if exact_fp else x * np.float32(1.0 / c)
-
-        rows = []
-        for r in range(R):
-            for p in range(P):
-                rows.append(norm(dem[r, p] - dem_min[p], dem_rangev[p]))
-        for n in range(N):
-            for p in range(P):
-                rows.append(norm(stock_ref[n, p], stock_cap[n, p]))
-            for p in range(P):
-                for j in range(Lavg - 1):
-                    pj = ring_ref[rslot(j), n, p]
-                    rows.append(norm(pj, ms_safe[n, p])
-                                if ms_ok[n, p] else jnp.zeros((B,), f32))
-                tail = jnp.zeros((B,), f32)
-                for j in range(Lavg - 1, RING - 1):
-                    tail = tail + ring_ref[rslot(j), n, p]
-                rows.append(norm(tail, ms_safe[n, p] * (Lmax - (Lavg - 1)))
-                            if ms_ok[n, p] else jnp.zeros((B,), f32))
-        remaining = (T - te).astype(f32) / T
-        rows.append(jnp.broadcast_to(remaining, (B,)))
-        obs = jnp.clip(2.0 * jnp.stack(rows) - 1.0, -1.0, 1.0)
-        assert obs.shape == (O, B), (obs.shape, O, B)
-        return obs
-
-    def _mlp(w_refs, x, precision=jax.lax.Precision.HIGHEST):
-        """tanh-MLP trunk + linear head: [w0,b0,...,wk,bk] -> head output.
-
-        The greedy policy-rollout kernel runs at HIGHEST (its on-device
-        parity row vs the scan evaluator is pinned at that setting,
-        benchmarks/pallas_parity.py); the PPO collect kernels pass DEFAULT
-        — the scan trainer they stand in for computes
-        ``actor_critic_forward`` with plain ``@`` (bf16 MXU multiplies on
-        TPU), so DEFAULT is both ~3x faster and the more faithful match."""
-        n = len(w_refs)
-        for li in range(0, n - 2, 2):
-            x = jnp.tanh(
-                jax.lax.dot(w_refs[li][...], x, precision=precision,
-                            preferred_element_type=f32)
-                + w_refs[li + 1][...])
-        return (jax.lax.dot(w_refs[n - 2][...], x, precision=precision,
-                            preferred_element_type=f32)
-                + w_refs[n - 1][...])
-
-    # -- in-kernel stochastic input rows (distribution parity with
-    # rng/device.py stateless_step_rows; pinned by test_rng_distribution) --
-    any_normal_demand = any(
-        (cfg.std is not None) if cfg.sen_peaks is None else cfg.perturb_norm
-        for cfg in cc.demand)
-
-    def _dem_row_from_u(u, u2, te):
-        """Uniform rows [R*P, B] (+ optional normal-source rows) -> demand
-        row [R, P, B] (row layout matches stateless_step_rows)."""
-        cols = []
-        for p in range(P):
-            cfg = cc.demand[p if cc.demand_by_product else 0]
-            up = jnp.stack([u[r * P + p] for r in range(R)])
-            up2 = (jnp.stack([u2[r * P + p] for r in range(R)])
-                   if u2 is not None else None)
-            cols.append(_demand_from_u(up, up2, cfg, te, T))
-        return jnp.stack(cols, axis=1)                      # [R, P, B]
-
-    # ------------------------------------------------------------------
-    # kernel bodies
-    # ------------------------------------------------------------------
-    def _kernel(*refs, mode: str, n_w: int = 0):
-        """mode: 'seeded' (in-kernel PRNG actions), 'actions' (action table),
-        'policy' (obs -> MLP actor -> tanh greedy action, all in-kernel).
-        Single episode, per-step rewards only."""
-        seeded = mode == "seeded"
-        i = 0
-        demand_ref = refs[i]; i += 1
+    def kernel(*refs):
         if stochastic:
-            lt_ref = refs[i]; i += 1
+            dem_ref, lt_ref, act_ref, obs_ref, rew_ref = refs
         else:
+            dem_ref, act_ref, obs_ref, rew_ref = refs
             lt_ref = None
-        if mode == "policy":
-            w_refs = refs[i:i + n_w]; i += n_w
-            act_ref = None
-        else:
-            act_ref = refs[i]; i += 1
-        reward_ref, stock_ref, ring_ref = refs[i:i + 3]
 
-        # one grid step per episode step: the big [T, ...] tables stay in
-        # HBM and pallas pipelines each step's block into VMEM, so VMEM use
-        # is O(state), not O(T * B) (a whole-episode ntom table set is
-        # ~100 MB at B=4096 — far past the scoped-VMEM limit)
-        ti = pl.program_id(0)
+        def episode(e, carry):
+            def step(te, state):
+                stock, pipe = state
+                s = e * T + te
+                dem = [[dem_ref[s, r, p] for p in range(P)] for r in range(R)]
+                for o, row in enumerate(_obs_rows(stock, pipe, dem, te)):
+                    obs_ref[s, o] = row
+                act_rows, lt_rows = {}, {}
 
-        @pl.when(ti == 0)
-        def _init():
-            _episode_init(stock_ref, ring_ref)
+                def a(i):
+                    i = int(i)
+                    if i not in act_rows:
+                        act_rows[i] = (act_ref[s, i] + 1.0) * 0.5
+                    return act_rows[i]
 
-        t = ti + 1
-        if seeded:
-            # distinct per-step stream from (seed, step): the PRNG state
-            # does not persist across grid steps
-            pltpu.prng_seed(act_ref[0], ti)
-            a = _uniform_pm1((A, B))
-        elif mode == "policy":
-            dem = demand_ref[0]                                # [R,P,B]
-            obs = _obs_build(stock_ref, ring_ref, dem, t, ti)
-            mu = _mlp(w_refs, obs)
-            a = jnp.tanh(mu)
-        else:
-            a = act_ref[0]                                    # [A,B]
-        a = (a + 1.0) * 0.5
-        # per-use lead-time gathers on the table row [K,B] (the scaled
-        # actions determine fired-ness, so this runs before the phases)
-        lts = _per_use_lts(lt_ref[0], a) if stochastic else None
-        # seeded uniforms and tanh(mu) are statically in [0, 1]; raw
-        # action tables are not.  Only the PRNG-seeded sweep takes the
-        # reassociated fast cost path; 'actions' (scan parity) and
-        # 'policy' (the pinned greedy-parity row) keep exact FP.
-        reward = _env_phases(stock_ref, ring_ref, a,
-                             lts, demand_ref[0], t,
-                             bounded_actions=(mode != "actions"),
-                             exact_fp=(mode != "seeded"))
-        reward_ref[0, 0] = reward
+                def lt_col(k):
+                    if k not in lt_rows:
+                        lt_rows[k] = lt_ref[s, k]
+                    return lt_rows[k]
 
-    def _collect_kernel(*refs, mode: str, n_w: int = 0, unroll: int = 1,
-                        sample_major: bool = False):
-        """Trajectory-emitting rollout over ``episodes`` back-to-back
-        episodes (auto-reset at each boundary).
+                stock, pipe, reward = _step(stock, pipe, a, lt_col, dem)
+                rew_ref[s] = reward
+                return stock, pipe
 
-        mode: 'random' (PRNG actions + PRNG inputs; the headline workload),
-        'actions' (tables; parity), 'policy' (PRNG inputs + sampled MLP
-        policy; the PPO collection workload), 'policy_eps' (tables + noise
-        table; parity).
+            jax.lax.fori_loop(0, T, step, _reset_state())
+            return carry
 
-        ``unroll``: steps per grid iteration.  When ``unroll == RING`` and
-        ``T % RING == 0`` (enforced by _build_collect), step j of every
-        group has ``t % RING == (j + 1) % RING`` STATICALLY, so all ring
-        accesses lower to static VMEM addresses — the dominant cost of the
-        stochastic-lead-time configs is otherwise the ~60 dynamic-slice
-        ring read-modify-writes per step."""
-        prng_inputs = mode in ("random", "policy")
-        policy = mode in ("policy", "policy_eps")
-        static_slots = unroll % RING == 0 and T % unroll == 0
-        i = 0
-        demand_ref = lt_ref = act_ref = eps_ref = seed_ref = None
-        if not prng_inputs:
-            demand_ref = refs[i]; i += 1
-            if stochastic:
-                lt_ref = refs[i]; i += 1
-            if mode == "actions":
-                act_ref = refs[i]; i += 1
-            else:
-                eps_ref = refs[i]; i += 1
-        else:
-            seed_ref = refs[i]; i += 1
-        if policy:
-            w_refs = refs[i:i + n_w]; i += n_w
-        if policy:
-            (obs_ref, actout_ref, logp_ref, value_ref, reward_ref,
-             stock_ref, ring_ref) = refs[i:i + 7]
-        else:
-            obs_ref, reward_ref, stock_ref, ring_ref = refs[i:i + 4]
+        jax.lax.fori_loop(0, E, episode, 0)
 
-        ti = pl.program_id(0) if nB == 1 else pl.program_id(1)
-        if prng_inputs:
-            # one seed per grid iteration, and ONE PRNG call for the whole
-            # iteration's stochastic inputs — actions/exploration noise,
-            # per-use lead-times, and demand uniforms for all `unroll`
-            # steps (measured worth ~3% on ntom over per-step calls; the
-            # draws are otherwise volume-bound).  Steps slice their rows
-            # in j order.  Lane tiles fold the tile index in (independent
-            # streams per tile; nB == 1 matches the r4 stream exactly).
-            if nB == 1:
-                pltpu.prng_seed(seed_ref[0], ti)
-            else:
-                # Mosaic accepts at most 2 seed values: fold (tile, step)
-                # into one unique per-grid-cell value
-                pltpu.prng_seed(seed_ref[0],
-                                pl.program_id(0) * pl.num_programs(1) + ti)
-            act_rows = 2 * A if policy else A
-            rps = (act_rows + (nU if stochastic else 0) + R * P
-                   + (R * P if any_normal_demand else 0))
-            if "prng" in ablate:           # measurement stub: cheap
-                # vector arithmetic instead of the PRNG draws.  Both axes
-                # must vary (a constant or lane-replicated value gets a
-                # replicated Mosaic layout and the row slices below trip
-                # an internal layout check)
-                r_i = jax.lax.broadcasted_iota(
-                    jnp.int32, (unroll * rps, B), 0)
-                c_i = jax.lax.broadcasted_iota(
-                    jnp.int32, (unroll * rps, B), 1)
-                ubig = ((r_i * 37 + c_i) % 101).astype(f32) * (1.0 / 101.0)
-            else:
-                ubig = _uniform_01((unroll * rps, B))
+    def lanes(*lead):
+        return pl.BlockSpec(lead + (Bt,),
+                            lambda i: (0,) * len(lead) + (i,))
 
-        for j in range(unroll):
-            te = (ti * unroll + j) % T   # step within the current episode
-            t = te + 1
-            tb = (j + 1) % RING if static_slots else None
-
-            if j == 0:
-                @pl.when(te == 0)
-                def _init():
-                    _episode_init(stock_ref, ring_ref)
-
-            if prng_inputs:
-                off = j * rps
-                u_act = ubig[off:off + act_rows]
-                off += act_rows
-                if stochastic:
-                    lts = _lts_from_u(ubig[off:off + nU])
-                    off += nU
-                else:
-                    lts = None
-                ud = ubig[off:off + R * P]
-                off += R * P
-                ud2 = (ubig[off:off + R * P] if any_normal_demand
-                       else None)
-                dem_row = _dem_row_from_u(ud, ud2, te)
-            else:
-                dem_row = demand_ref[j]
-
-            obs = _obs_build(stock_ref, ring_ref, dem_row, t, te, tb,
-                             exact_fp=not prng_inputs)
-            if sample_major:
-                # time-major flat trajectory: step j's samples occupy
-                # columns [j*B, (j+1)*B) of the (X, U*B) block — the
-                # update phase's [X, M] layout with zero host-side copies
-                obs_ref[:, j * B:(j + 1) * B] = obs
-            else:
-                obs_ref[j] = obs
-
-            if mode == "random":
-                a_raw = 2.0 * u_act - 1.0
-            elif mode == "actions":
-                a_raw = act_ref[j]
-            else:
-                # sampled tanh-Gaussian policy (models/policy.py
-                # sample_tanh_gaussian): actor trunk+mu on the MXU, noise
-                # from the fused PRNG rows (Box-Muller) or the parity table.
-                # weight layout (_flat_actor_critic): actor trunk + mu head
-                # (2L+2), critic trunk + v head (2L+2), log_std (1)
-                n_actor = (n_w - 1) // 2
-                actor_w = w_refs[:n_actor]
-                critic_w = w_refs[n_actor:n_w - 1]
-                log_std_ref = w_refs[n_w - 1]
-                prec = jax.lax.Precision.DEFAULT
-                mu = _mlp(actor_w, obs, prec)                 # [A,B]
-                log_std = jnp.clip(log_std_ref[...],
-                                   _LOG_STD_MIN, _LOG_STD_MAX)
-                std = jnp.exp(log_std)                        # [A,1]
-                if mode == "policy":
-                    eps = _box_muller(u_act[:A], u_act[A:])
-                else:
-                    eps = eps_ref[j]
-                pre = mu + std * eps
-                a_raw = jnp.tanh(pre)
-                # tanh-Gaussian log-density (policy.py tanh_gaussian_logp)
-                g = -0.5 * (((pre - mu) / std) ** 2 + 2 * log_std
-                            + math.log(2 * math.pi))
-                corr = 2 * (math.log(2.0) - pre - _softplus(-2.0 * pre))
-                logp = (g - corr).sum(axis=0)
-                v = _mlp(critic_w, obs, prec)                 # [1,B]
-                if sample_major:
-                    actout_ref[:, j * B:(j + 1) * B] = pre
-                else:
-                    actout_ref[j] = pre
-                logp_ref[j, 0] = logp
-                value_ref[j, 0] = v[0]
-
-            a = (a_raw + 1.0) * 0.5
-            if not prng_inputs:
-                lts = (_per_use_lts(lt_ref[j], a) if stochastic else None)
-            # PRNG uniforms and tanh-squashed policy actions are
-            # statically in [0, 1]; raw action tables are not.  The PRNG
-            # modes (no bit/stream-parity obligation) take the fast FP
-            # paths; the table parity modes keep the reference's exact
-            # op-for-op sequence.
-            reward = _env_phases(stock_ref, ring_ref, a, lts, dem_row,
-                                 t, tb,
-                                 bounded_actions=(mode != "actions"),
-                                 exact_fp=not prng_inputs)
-            reward_ref[j, 0] = reward
-
-    # ------------------------------------------------------------------
-    # pallas_call builders
-    # ------------------------------------------------------------------
-    def _build(mode, n_w=0):
-        if nB != 1:
-            raise ValueError("batch_tile is only supported for the collect "
-                             "kernels (use make_supplychain_collect_pallas)")
-        kernel = functools.partial(_kernel, mode=mode, n_w=n_w)
-        # grid over episode steps; per-step rows of the HBM-resident tables
-        # are pipelined into VMEM as (1, ...) blocks
-        in_specs = [pl.BlockSpec((1, R, P, B), lambda t: (t, 0, 0, 0))]
+    def build(dem_rows):
+        in_specs = [lanes(dem_rows, R, P)]
         if stochastic:
-            in_specs.append(pl.BlockSpec((1, K, B), lambda t: (t, 0, 0)))
-        if mode == "seeded":
-            in_specs.append(pl.BlockSpec(memory_space=pltpu.SMEM))
-        elif mode == "actions":
-            in_specs.append(pl.BlockSpec((1, A, B), lambda t: (t, 0, 0)))
-        else:   # policy: weights/biases are small, VMEM-resident full blocks
-            in_specs.extend(pl.BlockSpec(memory_space=pltpu.VMEM)
-                            for _ in range(n_w))
-        # rewards carry a singleton middle axis (squeezed by the wrappers):
-        # TPU lowering requires a block's last two dims to divide (8, 128)
-        # or equal the array's, and a (1, B) block over [T, B] does neither
-        call = pl.pallas_call(
-            kernel,
-            grid=(T,),
-            out_shape=jax.ShapeDtypeStruct((T, 1, B), f32),
-            in_specs=in_specs,
-            out_specs=pl.BlockSpec((1, 1, B), lambda t: (t, 0, 0)),
-            scratch_shapes=[
-                pltpu.VMEM((N, P, B), f32),          # stock
-                pltpu.VMEM((RING, N, P, B), f32),    # pipeline ring
-            ],
-            interpret=interpret,
-        )
-        return lambda *args: call(*args).squeeze(1)
-
-    def _build_collect(mode, episodes: int, n_w=0, sample_major=False):
-        S = episodes * T
-        if sample_major and (nB != 1 or mode not in ("policy",
-                                                     "policy_eps")):
-            raise ValueError("sample_major requires a policy mode and no "
-                             "batch tiling (the flat column layout "
-                             "interleaves under lane tiles)")
-        # RING-step groups: all ring slots static inside the kernel (see
-        # _collect_kernel).  Falls back to one step per grid iteration when
-        # the horizon doesn't align.  unroll_mult > 1 groups several RING
-        # cycles per grid iteration (bigger fusion windows, one PRNG call
-        # per group; costs compile time).  STREAM IMPACT (ADVICE r4): the
-        # kernel seeds the PRNG per grid iteration and one uniform block
-        # covers the whole unroll group, so a different multiplier is a
-        # different (equally valid) random stream — identical seeds
-        # reproduce identical trajectories only at the same multiplier.
-        # It is therefore an explicit builder parameter; the
-        # GST_COLLECT_UNROLL_MULT env var is only the default.
-        import os as _os
-        mult = (int(_os.environ.get("GST_COLLECT_UNROLL_MULT", "1"))
-                if unroll_mult is None else int(unroll_mult))
-        U = 1
-        if T % RING == 0:
-            U = RING * mult if (mult > 1 and T % (RING * mult) == 0) \
-                else RING
-        else:
-            import warnings
-            warnings.warn(
-                f"collect horizon T={T} is not a multiple of the pipeline "
-                f"ring {RING}: the RING-unrolled grid is disabled and "
-                f"collection runs ~2x slower (dynamic ring addressing); "
-                f"prefer a horizon with T % {RING} == 0", stacklevel=4)
-        kernel = functools.partial(_collect_kernel, mode=mode, n_w=n_w,
-                                   unroll=U, sample_major=sample_major)
-        prng_inputs = mode in ("random", "policy")
-        policy = mode in ("policy", "policy_eps")
-        # lane tiling (batch_tile): HBM arrays stay full-width (Bfull); the
-        # per-iteration blocks carry one B-wide lane tile, grid (nB, S//U)
-        # with the step dim innermost so each tile runs its episodes to
-        # completion before the next tile starts
-        if nB == 1:
-            def ixt4(t):
-                return (t, 0, 0, 0)
-
-            def ixt3(t):
-                return (t, 0, 0)
-        else:
-            def ixt4(b, t):
-                return (t, 0, 0, b)
-
-            def ixt3(b, t):
-                return (t, 0, b)
-        in_specs = []
-        if not prng_inputs:
-            in_specs.append(pl.BlockSpec((U, R, P, B), ixt4))
-            if stochastic:
-                in_specs.append(pl.BlockSpec((U, K, B), ixt3))
-            in_specs.append(pl.BlockSpec((U, A, B), ixt3))
-        else:
-            in_specs.append(pl.BlockSpec(memory_space=pltpu.SMEM))
-        if policy:
-            in_specs.extend(pl.BlockSpec(memory_space=pltpu.VMEM)
-                            for _ in range(n_w))
-        if sample_major:
-            # obs/act_pre straight in the update phase's [X, M] layout
-            # (M = S*B time-major): block (X, U*B) at column-block t
-            out_shapes = [jax.ShapeDtypeStruct((O, S * B), f32)]
-            out_specs = [pl.BlockSpec((O, U * B), lambda t: (0, t))]
-        else:
-            out_shapes = [jax.ShapeDtypeStruct((S, O, Bfull), f32)]
-            out_specs = [pl.BlockSpec((U, O, B), ixt3)]
-        if policy:
-            if sample_major:
-                out_shapes += [jax.ShapeDtypeStruct((A, S * B), f32)]
-                out_specs += [pl.BlockSpec((A, U * B), lambda t: (0, t))]
-            else:
-                out_shapes += [jax.ShapeDtypeStruct((S, A, Bfull), f32)]
-                out_specs += [pl.BlockSpec((U, A, B), ixt3)]
-            out_shapes += [jax.ShapeDtypeStruct((S, 1, Bfull), f32),
-                           jax.ShapeDtypeStruct((S, 1, Bfull), f32)]
-            out_specs += [pl.BlockSpec((U, 1, B), ixt3),
-                          pl.BlockSpec((U, 1, B), ixt3)]
-        out_shapes.append(jax.ShapeDtypeStruct((S, 1, Bfull), f32))
-        out_specs.append(pl.BlockSpec((U, 1, B), ixt3))
-        # the policy modes' MLP temporaries ([hidden, B] activations for the
-        # actor + critic trunks) overflow the default 16 MiB scoped-VMEM
-        # stack at B=4096; v5e has 128 MiB of VMEM, so raise the limit
-        params = (None if interpret else
-                  pltpu.CompilerParams(vmem_limit_bytes=100 * 1024 * 1024))
+            in_specs.append(lanes(S, K))
+        in_specs.append(lanes(S, A))
         return pl.pallas_call(
             kernel,
-            grid=(S // U,) if nB == 1 else (nB, S // U),
-            out_shape=out_shapes,
+            grid=(nB,),
             in_specs=in_specs,
-            out_specs=out_specs,
-            scratch_shapes=[
-                pltpu.VMEM((N, P, B), f32),          # stock
-                pltpu.VMEM((RING, N, P, B), f32),    # pipeline ring
-            ],
-            compiler_params=params,
+            out_specs=[lanes(S, O), lanes(S)],
+            out_shape=[jax.ShapeDtypeStruct((S, O, Bp), f32),
+                       jax.ShapeDtypeStruct((S, Bp), f32)],
+            backend="triton",
+            compiler_params=pltriton.CompilerParams(
+                num_warps=num_warps_for(Bt), num_stages=1),
             interpret=interpret,
+            name="supplychain_collect",
         )
 
-    def _flat_actor(params):
-        flat = []
-        for layer in params["actor"]:
-            flat += [jnp.asarray(layer["w"], f32),
-                     jnp.asarray(layer["b"], f32)]
-        flat += [jnp.asarray(params["mu"]["w"], f32),
-                 jnp.asarray(params["mu"]["b"], f32)]
-        return flat
-
-    def _flat_actor_critic(params):
-        """actor trunk+mu, then critic trunk+v, then log_std — the
-        'policy'/'policy_eps' collect weight layout."""
-        flat = _flat_actor(params)
-        for layer in params["critic"]:
-            flat += [jnp.asarray(layer["w"], f32),
-                     jnp.asarray(layer["b"], f32)]
-        flat += [jnp.asarray(params["v"]["w"], f32),
-                 jnp.asarray(params["v"]["b"], f32),
-                 jnp.asarray(params["log_std"], f32)]
-        return flat
-
-    def build_policy_runner(hidden):
-        """Fused greedy-policy rollout: obs -> MLP actor -> tanh(mu) -> env
-        step, the whole episode in one kernel.  Takes the init_actor_critic
-        params dict; only the actor trunk + mu head enter the kernel."""
-        n_w = 2 * len(hidden) + 2
-        policy_call = _build("policy", n_w=n_w)
-
-        def _flat(params):
-            flat = _flat_actor(params)
-            assert len(flat) == n_w, (len(flat), n_w)
-            return flat
-
+    def run(demands, *rest):
+        if len(rest) != (2 if stochastic else 1):
+            raise TypeError("run(demands, [leadtimes,] actions): leadtimes "
+                            "go with stochastic lead-times only")
+        demands = jnp.asarray(demands, f32)
+        if demands.shape[0] < S:
+            raise ValueError(f"demand table has {demands.shape[0]} rows, "
+                             f"needs {S}")
+        args = [_pad_lanes(demands, Bp, 0.0)]
         if stochastic:
-            def run_policy(demands, leadtimes, params):
-                """demands[T+1,R,P,B], leadtimes[T,K,B], params -> [T,B]."""
-                return policy_call(jnp.asarray(demands, f32),
-                                   jnp.asarray(leadtimes, i32),
-                                   *_flat(params))
-        else:
-            def run_policy(demands, params):
-                """demands[T+1,R,P,B], params -> rewards [T,B]."""
-                return policy_call(jnp.asarray(demands, f32), *_flat(params))
-        return jax.jit(run_policy)
+            args.append(_pad_lanes(jnp.asarray(rest[0], i32)[:S], Bp, 1))
+        args.append(_pad_lanes(jnp.asarray(rest[-1], f32)[:S], Bp, 0.0))
+        obs, rew = build(demands.shape[0])(*args)
+        return obs[..., :B], rew[:, :B]
 
-    def build_collect_runner(mode, episodes, hidden=None,
-                             sample_major=False):
-        """Trajectory-collection runners (see ``_collect_kernel``).
-
-        * 'random': ``run(seed) -> (obs [S,O,B], rewards [S,B])``
-        * 'actions': ``run(demands[S,...], [leadtimes[S,K,B],]
-          actions[S,A,B]) -> (obs, rewards)`` (parity vs the scan engine;
-          grid step t reads table row t, so episodes>1 takes tiled tables)
-        * 'policy': ``run(params, seed) -> (obs, act_pre [S,A,B], logp [S,B],
-          value [S,B], rewards [S,B])``
-        * 'policy_eps': ``run(demands, [leadtimes,] eps[S,A,B], params)``
-          (parity vs the scan PPO rollout; tiled tables as in 'actions')
-        where S = episodes * T.
-        """
-        policy = mode in ("policy", "policy_eps")
-        n_w = (4 * len(hidden) + 5) if policy else 0
-        call = _build_collect(mode, episodes, n_w=n_w,
-                              sample_major=sample_major)
-
-        def _squeeze(outs):
-            outs = list(outs)
-            outs[0] = outs[0]                       # obs [S,O,B]
-            for j in range(1, len(outs)):
-                if outs[j].shape[1] == 1:
-                    outs[j] = outs[j].squeeze(1)
-            return tuple(outs)
-
-        if mode == "random":
-            @jax.jit
-            def run(seed):
-                return _squeeze(call(jnp.asarray(seed, i32).reshape(1)))
-        elif mode == "actions":
-            # episodes > 1 takes S-row (tiled) tables: grid step t reads row t
-            if stochastic:
-                @jax.jit
-                def run(demands, leadtimes, actions):
-                    return _squeeze(call(jnp.asarray(demands, f32),
-                                         jnp.asarray(leadtimes, i32),
-                                         jnp.asarray(actions, f32)))
-            else:
-                @jax.jit
-                def run(demands, actions):
-                    return _squeeze(call(jnp.asarray(demands, f32),
-                                         jnp.asarray(actions, f32)))
-        elif mode == "policy":
-            def run(params, seed):
-                flat = _flat_actor_critic(params)
-                assert len(flat) == n_w, (len(flat), n_w)
-                return _squeeze(call(jnp.asarray(seed, i32).reshape(1),
-                                     *flat))
-            run = jax.jit(run)
-        else:   # policy_eps; episodes > 1 takes S-row (tiled) tables
-            if stochastic:
-                def run(demands, leadtimes, eps, params):
-                    flat = _flat_actor_critic(params)
-                    assert len(flat) == n_w, (len(flat), n_w)
-                    return _squeeze(call(jnp.asarray(demands, f32),
-                                         jnp.asarray(leadtimes, i32),
-                                         jnp.asarray(eps, f32), *flat))
-            else:
-                def run(demands, eps, params):
-                    flat = _flat_actor_critic(params)
-                    assert len(flat) == n_w, (len(flat), n_w)
-                    return _squeeze(call(jnp.asarray(demands, f32),
-                                         jnp.asarray(eps, f32), *flat))
-            run = jax.jit(run)
-        return run
-
-    if nB != 1:
-        # tiled builds serve only the collect kernels; the [T, B] episode
-        # runners keep their whole-B blocks (callers size them directly)
-        return None, None, None, build_collect_runner
-    seeded_call = _build("seeded")
-    actions_call = _build("actions")
-
-    if stochastic:
-        @jax.jit
-        def run_seeded(demands, leadtimes, seed):
-            """demands[T+1,R,P,B], leadtimes[T,K,B] i32, seed -> [T,B]."""
-            return seeded_call(jnp.asarray(demands, f32),
-                               jnp.asarray(leadtimes, i32),
-                               jnp.asarray(seed, i32).reshape(1))
-
-        @jax.jit
-        def run_actions(demands, leadtimes, actions):
-            """demands[T+1,R,P,B], leadtimes[T,K,B], actions[T,A,B]."""
-            return actions_call(jnp.asarray(demands, f32),
-                                jnp.asarray(leadtimes, i32),
-                                jnp.asarray(actions, f32))
-    else:
-        @jax.jit
-        def run_seeded(demands, seed):
-            """demands[T+1, R, P, B] f32, seed scalar int32 -> rewards[T, B]."""
-            return seeded_call(jnp.asarray(demands, f32),
-                               jnp.asarray(seed, i32).reshape(1))
-
-        @jax.jit
-        def run_actions(demands, actions):
-            """demands[T+1, R, P, B], actions[T, A, B] in [-1,1] -> [T, B]."""
-            return actions_call(jnp.asarray(demands, f32),
-                                jnp.asarray(actions, f32))
-
-    return run_seeded, run_actions, build_policy_runner, build_collect_runner
-
-
-def make_supplychain_episode_pallas(cc: CompiledChain, T: int, B: int,
-                                    interpret: bool = False):
-    """Whole-episode rollout kernels; see ``_make_episode_runners``.
-
-    Returns ``(run_seeded, run_actions)`` (docstring above)."""
-    run_seeded, run_actions, _, _ = _make_episode_runners(cc, T, B, interpret)
-    return run_seeded, run_actions
-
-
-def make_supplychain_policy_rollout_pallas(cc: CompiledChain, T: int, B: int,
-                                           hidden=(128, 128),
-                                           interpret: bool = False):
-    """Fused greedy policy-in-the-loop rollout (one kernel per episode).
-
-    Each grid step builds the observation from the live VMEM state, runs
-    the MLP actor trunk + mu head on the MXU (f32, Precision.HIGHEST),
-    takes the greedy action tanh(mu), and advances the environment — the
-    exact workload of ``learn/evaluate.py`` with zero per-step HBM round
-    trips for state or activations.  Takes ``init_actor_critic`` params.
-
-    Returns ``run_policy(demands, [leadtimes,] params) -> rewards [T, B]``.
-    """
-    _, _, build, _ = _make_episode_runners(cc, T, B, interpret)
-    return build(tuple(hidden))
-
-
-def auto_batch_tile(B: int, cap: int = 8192):
-    """Largest divisor of ``B`` that is <= ``cap`` — the default lane-tile
-    choice for the collect kernels at large env batches (whole-B blocks
-    stop compiling around B=16-64k; 8192-wide tiles measured within noise
-    of whole-B blocks at 4096-8192 on v5e)."""
-    if B <= cap:
-        return B
-    return next(t for t in range(cap, 0, -1) if B % t == 0)
-
-
-def make_supplychain_collect_pallas(cc: CompiledChain, T: int, B: int,
-                                    mode: str = "random", episodes: int = 1,
-                                    hidden=(128, 128),
-                                    interpret: bool = False,
-                                    unroll_mult=None, batch_tile=None,
-                                    sample_major: bool = False,
-                                    ablate=frozenset()):
-    """Trajectory-emitting fused rollout (VERDICT r2 item 1).
-
-    Runs ``episodes`` back-to-back episodes in ONE kernel with in-kernel
-    auto-reset, writing each step's trajectory row to HBM output blocks —
-    the PPO-collection workload with zero per-step dispatch and all state
-    in VMEM.  ``mode='random'`` (headline: PRNG actions + PRNG stochastic
-    inputs, emits obs + rewards), ``'policy'`` (sampled tanh-Gaussian MLP
-    policy, emits obs/act_pre/logp/value/rewards), ``'actions'`` /
-    ``'policy_eps'`` (table-driven single-episode parity variants).
-
-    See ``_make_episode_runners.build_collect_runner`` for signatures.
-
-    ``unroll_mult`` groups several ring cycles per grid iteration (see
-    ``_build_collect``); it changes the in-kernel PRNG draw grouping, so
-    reproducibility of seeded trajectories requires the same value —
-    ``None`` defaults to the ``GST_COLLECT_UNROLL_MULT`` env var (itself
-    defaulting to 1).
-
-    ``batch_tile`` (divisor of ``B``) tiles the env batch over lanes so
-    large batches compile — VMEM state and per-step blocks shrink to the
-    tile while the HBM trajectory stays ``[S, ..., B]`` (see
-    ``_make_episode_runners``).  PRNG modes fold the tile index into the
-    seed, so tiled and untiled runs are distinct (equally valid) streams.
-    """
-    if T != cc.T:
-        # episodes are cc.T long by construction; a mismatched T skews the
-        # remaining-time obs feature while leaving rewards identical
-        raise ValueError(f"T={T} must equal the chain horizon cc.T={cc.T}")
-    _, _, _, build_collect = _make_episode_runners(cc, T, B, interpret,
-                                                   unroll_mult=unroll_mult,
-                                                   batch_tile=batch_tile,
-                                                   ablate=ablate)
-    return build_collect(mode, episodes,
-                         tuple(hidden) if hidden is not None else None,
-                         sample_major=sample_major)
+    return jax.jit(run)

@@ -1,12 +1,12 @@
 """Device mesh setup and sharding layouts.
 
-TPU-native replacement for a distributed communication backend (the reference
-has none; SURVEY.md §2/§5): multi-host process groups via
-``jax.distributed.initialize``, a ``Mesh`` with a ``data`` axis (env batch)
-and an optional ``model`` axis (TP hook for the learner's hidden dims), and
-NamedShardings over the batch-trailing arrays.  All collectives are emitted by
-XLA from these annotations (psum of gradients over ICI within a slice, DCN
-across slices) — no explicit send/recv anywhere.
+Replacement for a distributed communication backend (the reference has none;
+SURVEY.md §2/§5): an optional multi-process runtime via
+``jax.distributed.initialize`` with one card per process, a ``Mesh`` with a
+``data`` axis (env batch) and an optional ``model`` axis (TP hook for the
+learner's hidden dims), and NamedShardings over the batch-trailing arrays.
+All collectives are emitted by XLA from these annotations (NCCL between
+GPUs, within a machine over NVLink) — no explicit send/recv anywhere.
 """
 from __future__ import annotations
 
@@ -22,16 +22,27 @@ __all__ = ["init_distributed", "make_mesh", "trailing_sharding",
 
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
-                     process_id: Optional[int] = None):
-    """Initialize multi-host JAX (no-op for single process).
+                     process_id: Optional[int] = None,
+                     local_device_ids=None):
+    """Initialize multi-process JAX (no-op for a single process).
 
-    On TPU pods the arguments are auto-detected from the environment; pass
-    them explicitly for CPU/GPU multi-process runs.
+    Nothing detects a cluster, so all three values are explicit:
+    ``coordinator_address`` is process 0's ``host:port``.  Each process
+    opens only ``local_device_ids`` — by default ``[process_id]``, one card
+    per process on one machine — so no process reserves memory on another
+    process's card.  Call before anything touches a device.
     """
-    if num_processes is not None and num_processes > 1:
-        jax.distributed.initialize(coordinator_address=coordinator_address,
-                                   num_processes=num_processes,
-                                   process_id=process_id)
+    if num_processes is None or num_processes <= 1:
+        return
+    if coordinator_address is None or process_id is None:
+        raise ValueError("multi-process runs need coordinator_address and "
+                         "process_id")
+    if local_device_ids is None:
+        local_device_ids = [process_id]
+    jax.distributed.initialize(coordinator_address=coordinator_address,
+                               num_processes=num_processes,
+                               process_id=process_id,
+                               local_device_ids=local_device_ids)
 
 
 def make_mesh(data: Optional[int] = None, model: int = 1,

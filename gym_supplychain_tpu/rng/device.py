@@ -73,11 +73,11 @@ def device_episode_tables(key, cc: CompiledChain, B: int, dtype=jnp.float32):
 # ---------------------------------------------------------------------------
 # Stateless per-step draws (table-free fast mode)
 #
-# Carrying whole-episode tables through a ``lax.scan`` costs real HBM traffic
-# (the [T+1,R,P,B] demand table gets layout-copied every iteration) and the
-# [T,K,B] Poisson table costs ~9 ms to regenerate at every auto-reset
+# Carrying whole-episode tables through a ``lax.scan`` costs memory traffic
+# (the [T+1,R,P,B] demand table rides the scan carry) and the [T,K,B]
+# Poisson table has to be regenerated at every auto-reset
 # (jax.random.poisson is a rejection sampler).  Counter-based Threefry gives
-# random access to the stream, so the TPU-native fast path draws each step's
+# random access to the stream, so the fast device path draws each step's
 # rows directly from ``fold_in(episode_key, t)`` — no tables in the state at
 # all — and samples the clipped lead-time distribution by inverse CDF with
 # precomputed thresholds (exact: clip(1+Poisson(lam), 1, Lmax) has Lmax

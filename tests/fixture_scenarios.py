@@ -13,7 +13,7 @@ test_supplychain_env.py:207-285).
 """
 import numpy as np
 
-# name -> dict(seed, episodes, make_tpu() -> strict-obs env,
+# name -> dict(seed, episodes, make() -> strict-obs env,
 #              make_ref(envs_module) -> reference env)
 SC_SCENARIOS = {}
 
@@ -36,8 +36,8 @@ def _partial_supply_nodes():
     }
 
 
-# Each build(ref_envs) returns (ref_env_or_None, tpu_env): pass ref_envs=None
-# to construct only the TPU side (the replay path).
+# Each build(ref_envs) returns (ref_env_or_None, our_env): pass ref_envs=None
+# to construct only this package's side (the replay path).
 
 @_scenario("2perstage_stochastic_leadtimes", seed=0)
 def _build_2perstage(ref_envs):
@@ -51,7 +51,7 @@ def _build_2perstage(ref_envs):
 @_scenario("ntom_stochastic", seed=3)
 def _build_ntom(ref_envs):
     from gym_supplychain_tpu import SupplyChainNtoMEnv
-    tpu = SupplyChainNtoMEnv(total_time_steps=60, strict_obs=True)
+    ours = SupplyChainNtoMEnv(total_time_steps=60, strict_obs=True)
     ref = None
     if ref_envs:
         from benchmarks.ref_baseline import _ntom_nodes_info
@@ -63,7 +63,7 @@ def _build_ntom(ref_envs):
             exceeded_ship_capacity_cost=10, processing_ratio=3,
             stochastic_leadtimes=True, avg_leadtime=2, max_leadtime=4,
             total_time_steps=60)
-    return ref, tpu
+    return ref, ours
 
 
 @_scenario("multiproduct_constant_leadtimes", seed=1)
@@ -120,7 +120,7 @@ def _build_nperstage(ref_envs):
 # ---------------------------------------------------------------------------
 
 def beergame_scenarios():
-    """name -> dict(make_tpu() -> env, kwargs for the paired construction,
+    """name -> dict(make() -> env, kwargs for the paired construction,
     actions [n_episodes][T, L] int).  Actions are derived from committed
     RandomState streams so the recorder and the replay generate identical
     inputs without gym."""

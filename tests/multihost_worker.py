@@ -5,8 +5,8 @@ the sharded PPO train step over the GLOBAL mesh, and prints its loss.
 This is the real multi-host code path (SURVEY.md §7 M5): every process
 executes the same SPMD program; env shards live process-local on the mesh
 'data' axis and gradient psums cross process boundaries via the collective
-backend — exactly how a TPU pod run is driven, with Gloo/CPU standing in for
-ICI.
+backend — exactly how a multi-process GPU run is driven, with Gloo/CPU
+standing in for NCCL.
 """
 import os
 import sys
@@ -52,33 +52,6 @@ def main():
                                   {"loss": repl, "mean_reward": repl,
                                    "mean_value": repl}))
     mode = sys.argv[3] if len(sys.argv) > 3 else "train"
-    if mode == "fused":
-        # Fused collection + fused update kernels composed with the GLOBAL
-        # 2-process mesh (VERDICT r4 missing-2): one interpret-mode Pallas
-        # collect instance per 'data' shard (4 per process), gradients
-        # pmean'd across the process boundary via Gloo.  Replicated
-        # metrics must come out bitwise identical on both ranks.
-        from gym_supplychain_tpu.learn.ppo import make_ppo_fused
-        cc6 = sct.make("supplychain-ntom-v0", total_time_steps=6).cc
-        init_f, step_f = make_ppo_fused(
-            cc6, 16, PPOConfig(hidden=(16, 16), epochs=2,
-                               fused_update=True,
-                               fused_update_interpret=True),
-            noise="table", interpret=True, mesh=mesh)
-        shapes_f = jax.eval_shape(init_f, jax.random.PRNGKey(0))
-        repl_f = jax.tree.map(lambda _: repl, shapes_f)
-        state = jax.jit(init_f, out_shardings=repl_f)(jax.random.PRNGKey(0))
-        stepj = jax.jit(step_f, in_shardings=(repl_f,),
-                        out_shardings=(repl_f,
-                                       {"loss": repl, "mean_reward": repl,
-                                        "mean_value": repl}))
-        for _ in range(2):
-            state, metrics = stepj(state)
-        loss = float(metrics["loss"])
-        reward = float(metrics["mean_reward"])
-        assert np.isfinite(loss) and np.isfinite(reward)
-        print(f"RANK{rank} loss={loss!r} mean_reward={reward!r}", flush=True)
-        return
     if mode == "train":
         for _ in range(3):
             state, metrics = step(state)

@@ -33,7 +33,7 @@ def record_supplychain(envs):
     from fixture_scenarios import SC_SCENARIOS
     out = {}
     for name, spec in SC_SCENARIOS.items():
-        ref, _tpu = spec["build"](envs)
+        ref, _ours = spec["build"](envs)
         ref.seed(spec["seed"])
         for ep in range(spec["episodes"]):
             obs = [np.asarray(ref.reset(), np.float64)]

@@ -29,20 +29,20 @@ def _load_reference():
     return importlib.import_module("gym_supplychain.envs")
 
 
-def _run_pair(ref, tpu, actions):
+def _run_pair(ref, ours, actions):
     """Step both envs with the given per-week actions; compare everything."""
     ref_obs = ref.reset()
-    tpu_obs = tpu.reset()
-    np.testing.assert_array_equal(tpu_obs, ref_obs, err_msg="reset obs")
+    our_obs = ours.reset()
+    np.testing.assert_array_equal(our_obs, ref_obs, err_msg="reset obs")
     for t, a in enumerate(actions):
         ref_obs, ref_r, ref_done, _ = ref.step(a)
-        tpu_obs, tpu_r, tpu_done, _ = tpu.step(a)
-        np.testing.assert_array_equal(tpu_obs, ref_obs,
+        our_obs, our_r, our_done, _ = ours.step(a)
+        np.testing.assert_array_equal(our_obs, ref_obs,
                                       err_msg=f"obs week {t + 1}")
-        assert float(tpu_r) == float(ref_r), f"reward week {t + 1}"
-        assert bool(tpu_done) == bool(ref_done)
-    np.testing.assert_array_equal(tpu.inventory, ref.inventory)
-    np.testing.assert_array_equal(tpu.backlog, ref.backlog)
+        assert float(our_r) == float(ref_r), f"reward week {t + 1}"
+        assert bool(our_done) == bool(ref_done)
+    np.testing.assert_array_equal(ours.inventory, ref.inventory)
+    np.testing.assert_array_equal(ours.backlog, ref.backlog)
 
 
 def test_v0_default_random_actions():
@@ -71,10 +71,10 @@ def test_v2_deterministic_sampled_actions():
     envs = _load_reference()
     from gym_supplychain_tpu.envs.beergame import BeerGameEnv2
     ref = envs.BeerGameEnv2()
-    tpu = BeerGameEnv2()
+    ours = BeerGameEnv2()
     ref.action_space.seed(0)
     actions = [ref.action_space.sample() for _ in range(35)]
-    _run_pair(ref, tpu, actions)
+    _run_pair(ref, ours, actions)
 
 
 def test_v2_stochastic_streams_two_episodes():
@@ -86,27 +86,27 @@ def test_v2_stochastic_streams_two_episodes():
     kw = dict(customer_demand=(0, 12), shipment_delays=(0, 4), max_stock=40,
               exceeded_capacity_penalty=37, seed=11)
     ref = envs.BeerGameEnv2(**kw)
-    tpu = BeerGameEnv2(**kw)
+    ours = BeerGameEnv2(**kw)
     rs = np.random.RandomState(3)
     for _ in range(3):
         actions = [rs.randint(0, 20, size=4) for _ in range(35)]
-        _run_pair(ref, tpu, actions)
-        np.testing.assert_array_equal(tpu.customer_demand,
+        _run_pair(ref, ours, actions)
+        np.testing.assert_array_equal(ours.customer_demand,
                                       ref.customer_demand)
-        np.testing.assert_array_equal(tpu.shipment_delays,
+        np.testing.assert_array_equal(ours.shipment_delays,
                                       ref.shipment_delays)
 
 
 def test_v2_reseed_reproduces():
     envs = _load_reference()
     from gym_supplychain_tpu.envs.beergame import BeerGameEnv2
-    tpu = BeerGameEnv2(customer_demand=(2, 9), shipment_delays=(1, 3))
-    tpu.seed(5)
-    tpu.reset()
-    d1 = np.copy(tpu.customer_demand)
-    tpu.reset()
-    d2 = np.copy(tpu.customer_demand)
+    ours = BeerGameEnv2(customer_demand=(2, 9), shipment_delays=(1, 3))
+    ours.seed(5)
+    ours.reset()
+    d1 = np.copy(ours.customer_demand)
+    ours.reset()
+    d2 = np.copy(ours.customer_demand)
     assert not np.array_equal(d1, d2)
-    tpu.seed(5)
-    tpu.reset()
-    np.testing.assert_array_equal(tpu.customer_demand, d1)
+    ours.seed(5)
+    ours.reset()
+    np.testing.assert_array_equal(ours.customer_demand, d1)

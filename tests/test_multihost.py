@@ -4,7 +4,7 @@ Spawns TWO OS processes that form a jax.distributed CPU cluster (4 virtual
 devices each = 8 global), jit the sharded PPO train step over the global
 ('data' x 'model') mesh, and train for 3 iterations.  Asserts both ranks
 complete and report bitwise-identical replicated metrics — the same SPMD
-program a TPU pod runs, with Gloo standing in for ICI.
+program a multi-process GPU run executes, with Gloo standing in for NCCL.
 """
 import os
 import re
@@ -42,34 +42,6 @@ def test_two_process_sharded_training():
                     for o in outs)
     assert [r for r, _ in losses] == ["0", "1"]
     # replicated metrics must be bitwise identical across processes
-    assert losses[0][1] == losses[1][1]
-
-
-@pytest.mark.skipif(os.environ.get("GST_NO_SUBPROC") == "1",
-                    reason="subprocess tests disabled")
-def test_two_process_fused_training():
-    """The HEADLINE engine (fused Pallas collection + fused update kernel)
-    at a real OS-process boundary (VERDICT r4 missing-2): two
-    jax.distributed processes jit make_ppo_fused over the global mesh —
-    one interpret-mode kernel instance per 'data' shard, gradients
-    pmean'd across Gloo — and must report bitwise-identical replicated
-    metrics."""
-    port = _free_port()
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("JAX_PLATFORMS", "XLA_FLAGS")}
-    procs = [subprocess.Popen(
-                 [sys.executable, _WORKER, str(r), str(port), "fused"],
-                 stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                 text=True, env=env)
-             for r in range(2)]
-    outs = []
-    for p in procs:
-        out, err = p.communicate(timeout=300)
-        assert p.returncode == 0, f"worker failed:\n{out}\n{err[-2000:]}"
-        outs.append(out)
-    losses = sorted(re.search(r"RANK(\d) loss=([-\d.e]+)", o).groups()
-                    for o in outs)
-    assert [r for r, _ in losses] == ["0", "1"]
     assert losses[0][1] == losses[1][1]
 
 

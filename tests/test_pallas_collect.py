@@ -1,12 +1,9 @@
-"""Trajectory-emitting fused collect kernel parity (VERDICT r2 item 1).
+"""Trajectory-collect kernel parity (interpret mode on CPU).
 
-The ``make_supplychain_collect_pallas`` table-driven modes must reproduce the
-scan engine step-for-step: 'actions' emits (obs, rewards) for a scripted
-action table; 'policy_eps' emits the full PPO trajectory tuple
-(obs, pre-tanh action, log-prob, value, rewards) for a given noise table,
-matching the ``learn/ppo.py`` rollout body.  Interpret mode on CPU; the
-compiled-TPU comparison (plus the PRNG 'random'/'policy' modes, which need
-the hardware PRNG) lives in benchmarks/pallas_parity.py (GST_PALLAS=1).
+``make_supplychain_collect_pallas`` must reproduce the scan engine step for
+step: (obs, rewards) for scripted demand, lead-time and action tables,
+across back-to-back episodes and any lane tiling.  The compiled kernel is
+compared on the GPU by tests/test_collect_compiled.py and chip_smoke.py.
 """
 import jax
 import jax.numpy as jnp
@@ -42,7 +39,7 @@ def _check_actions_mode(env_id, T, B, seed, **make_kw):
     if cc.stochastic_leadtimes:
         lt = rs.randint(1, cc.Lmax + 1, size=(T, cc.K, B)).astype(np.int32)
 
-    run = make_supplychain_collect_pallas(cc, T, B, mode="actions",
+    run = make_supplychain_collect_pallas(cc, B, batch_tile=4,
                                           interpret=True)
     if lt is not None:
         pal_obs, pal_rew = [np.asarray(x) for x in run(demands, lt, actions)]
@@ -68,74 +65,6 @@ def test_collect_actions_ntom_stochastic():
     _check_actions_mode("supplychain-ntom-v0", 15, 4, 7)
 
 
-def _ppo_scan_traj(cc, params, demands, eps, leadtimes=None):
-    """Oracle mirroring the learn/ppo.py rollout body with a fixed noise
-    table: (obs, pre-tanh action, logp, value, reward) per step."""
-    from gym_supplychain_tpu.core.step import make_supplychain_kernels
-    from gym_supplychain_tpu.models.policy import (actor_critic_forward,
-                                                   tanh_gaussian_logp)
-    T, B = eps.shape[0], eps.shape[-1]
-    reset_fn, step_fn, obs_fn = make_supplychain_kernels(cc)
-    st = reset_fn(demands, leadtimes, B)
-    step = jax.jit(step_fn)
-    fwd = jax.jit(actor_critic_forward)
-    logp_fn = jax.jit(tanh_gaussian_logp)
-    obs = np.asarray(obs_fn(st))
-    out = {k: [] for k in ("obs", "pre", "logp", "value", "rew")}
-    for t in range(T):
-        mu, log_std, value = fwd(params, jnp.asarray(obs))
-        pre = mu + jnp.exp(log_std) * jnp.asarray(eps[t])
-        logp = logp_fn(pre, mu, log_std)
-        st, o = step(st, jnp.tanh(pre))
-        out["obs"].append(obs)
-        out["pre"].append(np.asarray(pre))
-        out["logp"].append(np.asarray(logp))
-        out["value"].append(np.asarray(value))
-        out["rew"].append(np.asarray(o.reward))
-        obs = np.asarray(o.obs)
-    return {k: np.stack(v) for k, v in out.items()}
-
-
-def _check_policy_eps_mode(env_id, T, B, hidden, seed, **make_kw):
-    import gym_supplychain_tpu as sct
-    from gym_supplychain_tpu.models.policy import MLPConfig, init_actor_critic
-    from gym_supplychain_tpu.ops.supplychain_pallas import (
-        make_supplychain_collect_pallas)
-
-    cc = sct.make(env_id, total_time_steps=T, **make_kw).cc
-    params = init_actor_critic(
-        jax.random.PRNGKey(seed), MLPConfig(cc.obs_dim, cc.A, hidden))
-    params["mu"]["w"] = params["mu"]["w"] * 100   # non-degenerate actions
-    rs = np.random.RandomState(seed)
-    demands = rs.randint(0, 25, size=(T + 1, cc.R, cc.P, B)).astype(np.float32)
-    eps = rs.randn(T, cc.A, B).astype(np.float32)
-    lt = None
-    if cc.stochastic_leadtimes:
-        lt = rs.randint(1, cc.Lmax + 1, size=(T, cc.K, B)).astype(np.int32)
-
-    run = make_supplychain_collect_pallas(cc, T, B, mode="policy_eps",
-                                          hidden=hidden, interpret=True)
-    args = (demands, lt, eps, params) if lt is not None \
-        else (demands, eps, params)
-    pal = [np.asarray(x) for x in run(*args)]
-    ref = _ppo_scan_traj(cc, params, demands, eps, lt)
-    obs, pre, logp, value, rew = pal
-    np.testing.assert_allclose(obs, ref["obs"], rtol=0, atol=1e-6)
-    np.testing.assert_allclose(pre, ref["pre"], rtol=0, atol=1e-4)
-    np.testing.assert_allclose(logp, ref["logp"], rtol=1e-4, atol=1e-3)
-    np.testing.assert_allclose(value, ref["value"], rtol=0, atol=1e-4)
-    np.testing.assert_allclose(rew, ref["rew"], rtol=0,
-                               atol=1e-4 * np.abs(ref["rew"]).max())
-
-
-def test_collect_policy_eps_linear():
-    _check_policy_eps_mode("supplychain-linear-v0", 15, 4, (16, 16), 1)
-
-
-def test_collect_policy_eps_ntom_stochastic():
-    _check_policy_eps_mode("supplychain-ntom-v0", 10, 4, (16,), 2)
-
-
 def test_collect_multi_episode_auto_reset():
     """Back-to-back episodes in one kernel: with identical tiled per-episode
     tables the emitted trajectory must repeat exactly across episodes (the
@@ -150,12 +79,12 @@ def test_collect_multi_episode_auto_reset():
     actions1 = (2 * rs.rand(T, cc.A, B) - 1).astype(np.float32)
     demands1 = rs.randint(0, 25, size=(T + 1, cc.R, cc.P, B)).astype(np.float32)
 
-    # grid step t reads table row t, so episodes>1 takes S-row tiled tables
+    # step s reads table row s, so episodes > 1 take S-row tiled tables
     dem_tiled = np.concatenate([demands1[:T]] * episodes, axis=0)
     act_tiled = np.concatenate([actions1] * episodes, axis=0)
 
-    run = make_supplychain_collect_pallas(cc, T, B, mode="actions",
-                                          episodes=episodes, interpret=True)
+    run = make_supplychain_collect_pallas(cc, B, episodes=episodes,
+                                          batch_tile=4, interpret=True)
     obs, rew = [np.asarray(x) for x in run(dem_tiled, act_tiled)]
     ref_obs, ref_rew = _scan_traj(cc, demands1, actions1)
     for e in range(episodes):
@@ -166,10 +95,9 @@ def test_collect_multi_episode_auto_reset():
 
 
 def test_collect_batch_tile_matches_untiled():
-    """Lane-tiled collect grid (batch_tile, VERDICT r4 missing-1): the
-    (B//Bt, S//U) grid with per-tile VMEM state must reproduce the
-    untiled kernel bit-for-bit in 'actions' mode (deterministic inputs) on
-    both a constant- and a stochastic-lead-time preset."""
+    """Lane tiles are independent programs: 4-lane tiles must reproduce one
+    16-lane tile bit for bit on both a constant- and a stochastic-lead-time
+    preset, across an episode boundary."""
     import gym_supplychain_tpu as sct
     from gym_supplychain_tpu.ops.supplychain_pallas import (
         make_supplychain_collect_pallas)
@@ -180,10 +108,9 @@ def test_collect_batch_tile_matches_untiled():
         B, E = 16, 2
         S = E * T
         run_full = make_supplychain_collect_pallas(
-            cc, T, B, mode="actions", episodes=E, interpret=True)
+            cc, B, episodes=E, batch_tile=16, interpret=True)
         run_tile = make_supplychain_collect_pallas(
-            cc, T, B, mode="actions", episodes=E, interpret=True,
-            batch_tile=4)
+            cc, B, episodes=E, batch_tile=4, interpret=True)
         rs = np.random.RandomState(11)
         dem = rs.randint(0, 25, size=(S, cc.R, cc.P, B)).astype(np.float32)
         act = (2 * rs.rand(S, cc.A, B) - 1).astype(np.float32)
@@ -196,65 +123,3 @@ def test_collect_batch_tile_matches_untiled():
         o2, r2 = run_tile(*args)
         np.testing.assert_array_equal(np.asarray(o1), np.asarray(o2))
         np.testing.assert_array_equal(np.asarray(r1), np.asarray(r2))
-
-
-def test_collect_sample_major_layout_matches_default():
-    """sample_major=True (the fused trainer's zero-copy layout) must emit
-    obs/act_pre as the [X, S*B] time-major flattening of the default
-    [S, X, B] outputs, with identical logp/value/reward rows."""
-    import gym_supplychain_tpu as sct
-    from gym_supplychain_tpu.models.policy import (MLPConfig,
-                                                   init_actor_critic)
-    from gym_supplychain_tpu.ops.supplychain_pallas import (
-        make_supplychain_collect_pallas)
-
-    T, B, E = 6, 8, 2
-    S = E * T
-    cc = sct.make("supplychain-ntom-v0", total_time_steps=T).cc
-    hidden = (16,)
-    params = init_actor_critic(
-        jax.random.PRNGKey(0),
-        MLPConfig(obs_dim=cc.obs_dim, act_dim=cc.A, hidden=hidden),
-        jnp.float32)
-    rs = np.random.RandomState(5)
-    dem = jax.vmap(lambda _: jnp.asarray(
-        rs.randint(0, 25, size=(T, cc.R, cc.P, B)), jnp.float32))(
-        jnp.arange(E)).reshape(S, cc.R, cc.P, B)
-    lt = jnp.asarray(rs.randint(1, cc.Lmax + 1, size=(S, cc.K, B)),
-                     jnp.int32)
-    eps = jnp.asarray(rs.randn(S, cc.A, B), jnp.float32)
-
-    kw = dict(mode="policy_eps", episodes=E, hidden=hidden, interpret=True)
-    run_d = make_supplychain_collect_pallas(cc, T, B, **kw)
-    run_s = make_supplychain_collect_pallas(cc, T, B, sample_major=True,
-                                            **kw)
-    od, ad, ld, vd, rd = run_d(dem, lt, eps, params)
-    os_, as_, ls, vs, rw = run_s(dem, lt, eps, params)
-    np.testing.assert_array_equal(
-        np.asarray(od).transpose(1, 0, 2).reshape(cc.obs_dim, S * B),
-        np.asarray(os_))
-    np.testing.assert_array_equal(
-        np.asarray(ad).transpose(1, 0, 2).reshape(cc.A, S * B),
-        np.asarray(as_))
-    np.testing.assert_array_equal(np.asarray(ld), np.asarray(ls))
-    np.testing.assert_array_equal(np.asarray(vd), np.asarray(vs))
-    np.testing.assert_array_equal(np.asarray(rd), np.asarray(rw))
-
-
-def test_collect_warns_on_ring_misaligned_horizon():
-    """T not divisible by the pipeline ring disables the RING-unrolled
-    grid at ~2x the collection cost; the builder must say so."""
-    import warnings
-
-    import gym_supplychain_tpu as sct
-    from gym_supplychain_tpu.ops.supplychain_pallas import (
-        make_supplychain_collect_pallas)
-
-    cc = sct.make("supplychain-ntom-v0", total_time_steps=7).cc
-    assert 7 % (cc.H + 1) != 0
-    with warnings.catch_warnings(record=True) as w:
-        warnings.simplefilter("always")
-        make_supplychain_collect_pallas(cc, 7, 4, mode="random",
-                                        interpret=True)
-    assert any("RING-unrolled" in str(x.message) for x in w), \
-        [str(x.message) for x in w]

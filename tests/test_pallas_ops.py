@@ -1,100 +1,107 @@
-"""Pallas kernel parity: the fused whole-episode beer game kernel must match
-the lax.scan path bit-for-bit (interpret mode on CPU; the compiled-TPU
-comparison lives in benchmarks/pallas_vs_xla.py)."""
+"""Collect-kernel parity in interpret mode on CPU: the beer-game kernel must
+match the lax.scan path bit-for-bit, the supply-chain kernel the scan
+engine to float32 rounding.  The compiled kernels are compared on the GPU by
+tests/test_collect_compiled.py and chip_smoke.py."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 
-def test_pallas_episode_matches_scan():
+def _beergame_scan(L, W, demand, delays, actions, inv0, ship=4, orders=4,
+                   max_delay=2, episodes=1, **kw):
+    """Oracle: per-week (obs, reward) through core/beergame.py, resetting at
+    each episode start.  ``demand(e)`` / ``delays(e)`` give episode e's
+    demand row and delays table (slot 0 = prepended initial delay)."""
     from gym_supplychain_tpu.core.beergame import make_beergame_kernels
-    from gym_supplychain_tpu.ops.beergame_pallas import beergame_episode_pallas
+
+    B = actions.shape[-1]
+    reset_fn, step_fn, _ = make_beergame_kernels(L, W, max_delay,
+                                                 itype=jnp.int32, **kw)
+    step = jax.jit(step_fn)
+    obs, rew = [], []
+    for e in range(episodes):
+        st = reset_fn(demand(e), delays(e), inv0, ship, orders, B)
+        for w in range(W):
+            st, (o, r, _) = step(st, actions[e * W + w])
+            obs.append(np.asarray(o))
+            rew.append(np.asarray(r))
+    return np.stack(obs), np.stack(rew)
+
+
+def test_pallas_episode_matches_scan():
+    from gym_supplychain_tpu.ops.beergame_pallas import (
+        make_beergame_collect_pallas)
 
     W, L, B = 35, 4, 8
     rs = np.random.RandomState(0)
     demand = np.array([4] * 4 + [8] * (W - 4), np.int32)
     actions = rs.randint(0, 16, size=(W, L, B)).astype(np.int32)
-    inv0 = np.full((L, B), 12, np.int32)
-
-    reset_fn, step_fn, _ = make_beergame_kernels(L, W, 2, itype=jnp.int32)
-    delays = np.full(W + 1, 2, np.int32)
-    st = reset_fn(demand, delays, [12] * L, 4, 4, B)
-    step = jax.jit(step_fn)
-    scan_rewards = []
-    for w in range(W):
-        st, (_, r, _) = step(st, actions[w])
-        scan_rewards.append(np.asarray(r))
-    scan_rewards = np.stack(scan_rewards)
-
-    dem2 = np.broadcast_to(demand[:, None], (W, B)).copy()
-    pallas_rewards = np.asarray(beergame_episode_pallas(
-        dem2, actions, inv0, interpret=True))
-    np.testing.assert_array_equal(pallas_rewards, scan_rewards)
+    _, scan_rewards = _beergame_scan(
+        L, W, lambda e: demand, lambda e: np.full(W + 1, 2, np.int32),
+        actions, [12] * L)
+    _, pallas_rewards = make_beergame_collect_pallas(
+        W, L, B, batch_tile=8, interpret=True)(demand, actions)
+    np.testing.assert_array_equal(np.asarray(pallas_rewards), scan_rewards)
 
 
 def test_pallas_episode_custom_params():
-    from gym_supplychain_tpu.core.beergame import make_beergame_kernels
-    from gym_supplychain_tpu.ops.beergame_pallas import beergame_episode_pallas
+    from gym_supplychain_tpu.ops.beergame_pallas import (
+        make_beergame_collect_pallas)
 
     W, L, B = 20, 3, 4
     rs = np.random.RandomState(5)
     demand = rs.randint(0, 10, size=W).astype(np.int32)
     actions = rs.randint(0, 9, size=(W, L, B)).astype(np.int32)
-    inv0 = np.broadcast_to(np.array([[5], [9], [13]], np.int32), (L, B)).copy()
-
-    reset_fn, step_fn, _ = make_beergame_kernels(
-        L, W, 3, inv_cost=2, backlog_cost=7, itype=jnp.int32)
-    delays = np.full(W + 1, 3, np.int32)
-    st = reset_fn(demand, delays, [5, 9, 13], 6, 2, B)
-    step = jax.jit(step_fn)
-    scan_rewards = []
-    for w in range(W):
-        st, (_, r, _) = step(st, actions[w])
-        scan_rewards.append(np.asarray(r))
-
-    dem2 = np.broadcast_to(demand[:, None], (W, B)).copy()
-    pallas_rewards = np.asarray(beergame_episode_pallas(
-        dem2, actions, inv0, delay=3, init_ship=6, init_orders=2,
-        inv_cost=2, backlog_cost=7, interpret=True))
-    np.testing.assert_array_equal(pallas_rewards, np.stack(scan_rewards))
+    scan_obs, scan_rewards = _beergame_scan(
+        L, W, lambda e: demand, lambda e: np.full(W + 1, 3, np.int32),
+        actions, [5, 9, 13], ship=6, orders=2, max_delay=3, inv_cost=2,
+        backlog_cost=7)
+    obs, rew = make_beergame_collect_pallas(
+        W, L, B, delay=3, init_ship=6, init_orders=2, init_inv=[5, 9, 13],
+        inv_cost=2, backlog_cost=7, batch_tile=4, interpret=True)(
+            demand, actions)
+    np.testing.assert_array_equal(np.asarray(rew), scan_rewards)
+    np.testing.assert_array_equal(np.asarray(obs), scan_obs)
 
 
-def _scan_rewards(cc, demands, actions, leadtimes=None):
-    from gym_supplychain_tpu.core.step import make_supplychain_kernels
-    T = actions.shape[0]
+def _supplychain_check(cc, demands, actions, leadtimes=None, batch_tile=4):
+    """Kernel rewards vs the scan engine on one episode of tables."""
+    from gym_supplychain_tpu.ops.reference import supplychain_scan_trajectory
+    from gym_supplychain_tpu.ops.supplychain_pallas import (
+        make_supplychain_collect_pallas)
+
     B = actions.shape[-1]
-    reset_fn, step_fn, _ = make_supplychain_kernels(cc)
-    st = reset_fn(demands, leadtimes, B)
-    step = jax.jit(step_fn)
-    out = []
-    for t in range(T):
-        st, o = step(st, jnp.asarray(actions[t]))
-        out.append(np.asarray(o.reward))
-    return np.stack(out)
+    run = make_supplychain_collect_pallas(cc, B, batch_tile=batch_tile,
+                                          interpret=True)
+    args = (demands, actions) if leadtimes is None \
+        else (demands, leadtimes, actions)
+    _, pal = run(*args)
+    _, scan = jax.jit(functools.partial(supplychain_scan_trajectory, cc))(
+        jnp.asarray(demands, jnp.float32),
+        None if leadtimes is None else jnp.asarray(leadtimes),
+        jnp.asarray(actions))
+    scan = np.asarray(scan)
+    np.testing.assert_allclose(np.asarray(pal), scan, rtol=0,
+                               atol=1e-5 * np.abs(scan).max())
 
 
 def test_supplychain_pallas_linear():
     import gym_supplychain_tpu as sct
-    from gym_supplychain_tpu.ops.supplychain_pallas import (
-        make_supplychain_episode_pallas)
 
     T, B = 20, 4
     cc = sct.make("supplychain-linear-v0", total_time_steps=T).cc
     rs = np.random.RandomState(0)
     actions = (2 * rs.rand(T, cc.A, B) - 1).astype(np.float32)
     demands = rs.randint(0, 20, size=(T + 1, cc.R, cc.P, B)).astype(np.float32)
-    _, run_actions = make_supplychain_episode_pallas(cc, T, B, interpret=True)
-    pal = np.asarray(run_actions(demands, actions))
-    scan = _scan_rewards(cc, demands, actions)
-    np.testing.assert_allclose(pal, scan, rtol=0, atol=1e-5 * np.abs(scan).max())
+    _supplychain_check(cc, demands, actions)
 
 
 def test_supplychain_pallas_2perstage():
     """Full 8-node bipartite chain: factories (processing ratio/capacity),
     sorted-cut over 2 destinations, every cost category."""
     import gym_supplychain_tpu as sct
-    from gym_supplychain_tpu.ops.supplychain_pallas import (
-        make_supplychain_episode_pallas)
 
     T, B = 15, 4
     cc = sct.make("supplychain-2perstage-v0", total_time_steps=T,
@@ -102,10 +109,7 @@ def test_supplychain_pallas_2perstage():
     rs = np.random.RandomState(3)
     actions = (2 * rs.rand(T, cc.A, B) - 1).astype(np.float32)
     demands = rs.randint(0, 30, size=(T + 1, cc.R, cc.P, B)).astype(np.float32)
-    _, run_actions = make_supplychain_episode_pallas(cc, T, B, interpret=True)
-    pal = np.asarray(run_actions(demands, actions))
-    scan = _scan_rewards(cc, demands, actions)
-    np.testing.assert_allclose(pal, scan, rtol=0, atol=1e-5 * np.abs(scan).max())
+    _supplychain_check(cc, demands, actions)
 
 
 def test_supplychain_pallas_negative_ship_overflow():
@@ -115,8 +119,6 @@ def test_supplychain_pallas_negative_ship_overflow():
     NOTHING into the destination pipeline (supplychain_env.py:343-348), in
     constant-lead-time mode too, exactly like the scan engine."""
     import gym_supplychain_tpu as sct
-    from gym_supplychain_tpu.ops.supplychain_pallas import (
-        make_supplychain_episode_pallas)
 
     T, B = 6, 4
     nodes_info = {
@@ -135,10 +137,7 @@ def test_supplychain_pallas_negative_ship_overflow():
     # product 1 then clips to a2c = -200
     actions = np.ones((T, cc.A, B), np.float32)
     demands = np.full((T + 1, cc.R, cc.P, B), 5, np.float32)
-    _, run_actions = make_supplychain_episode_pallas(cc, T, B, interpret=True)
-    pal = np.asarray(run_actions(demands, actions))
-    scan = _scan_rewards(cc, demands, actions)
-    np.testing.assert_allclose(pal, scan, rtol=0, atol=1e-5 * np.abs(scan).max())
+    _supplychain_check(cc, demands, actions)
 
 
 def test_supplychain_pallas_stochastic_leadtimes():
@@ -146,8 +145,6 @@ def test_supplychain_pallas_stochastic_leadtimes():
     lead-time table with the reference's action-dependent column indexing
     (SURVEY.md §2.1-5) exactly like the scan engine."""
     import gym_supplychain_tpu as sct
-    from gym_supplychain_tpu.ops.supplychain_pallas import (
-        make_supplychain_episode_pallas)
 
     T, B = 15, 4
     cc = sct.make("supplychain-ntom-v0", total_time_steps=T).cc
@@ -159,126 +156,33 @@ def test_supplychain_pallas_stochastic_leadtimes():
     actions[actions < -0.5] = -1.0
     demands = rs.randint(0, 30, size=(T + 1, cc.R, cc.P, B)).astype(np.float32)
     leadtimes = rs.randint(1, cc.Lmax + 1, size=(T, cc.K, B)).astype(np.int32)
-    _, run_actions = make_supplychain_episode_pallas(cc, T, B, interpret=True)
-    pal = np.asarray(run_actions(demands, leadtimes, actions))
-    scan = _scan_rewards(cc, demands, actions, leadtimes)
-    np.testing.assert_allclose(pal, scan, rtol=0, atol=1e-5 * np.abs(scan).max())
+    _supplychain_check(cc, demands, actions, leadtimes)
 
 
 def test_pallas_episode_zero_delay():
     """delay=0 delivers straight into downstream inventory the same week
     (reference beergame_env.py:93-96, :111-114) — must match the scan path."""
-    from gym_supplychain_tpu.core.beergame import make_beergame_kernels
-    from gym_supplychain_tpu.ops.beergame_pallas import beergame_episode_pallas
+    from gym_supplychain_tpu.ops.beergame_pallas import (
+        make_beergame_collect_pallas)
 
     W, L, B = 12, 4, 4
     rs = np.random.RandomState(11)
     demand = rs.randint(0, 10, size=W).astype(np.int32)
     actions = rs.randint(0, 9, size=(W, L, B)).astype(np.int32)
-    inv0 = np.full((L, B), 12, np.int32)
-
-    reset_fn, step_fn, _ = make_beergame_kernels(L, W, 2, itype=jnp.int32)
     delays = np.zeros(W + 1, np.int32)
     delays[0] = 2   # prepended initial delay seeds the pipeline
-    st = reset_fn(demand, delays, [12] * L, 4, 4, B)
-    step = jax.jit(step_fn)
-    scan_rewards = []
-    for w in range(W):
-        st, (_, r, _) = step(st, actions[w])
-        scan_rewards.append(np.asarray(r))
-
-    dem2 = np.broadcast_to(demand[:, None], (W, B)).copy()
-    pallas_rewards = np.asarray(beergame_episode_pallas(
-        dem2, actions, inv0, delay=0, init_delay=2, interpret=True))
-    np.testing.assert_array_equal(pallas_rewards, np.stack(scan_rewards))
-
-
-def _greedy_scan_rewards(cc, params, demands, leadtimes=None):
-    """Oracle: greedy (tanh(mu)) rollout through the scan engine with the
-    same HIGHEST-precision matmuls the fused kernel uses."""
-    from gym_supplychain_tpu.core.step import make_supplychain_kernels
-
-    def forward_mu(params, obs):
-        x = obs
-        for layer in params["actor"]:
-            x = jnp.tanh(jnp.einsum("on,nb->ob", layer["w"], x,
-                                    precision=jax.lax.Precision.HIGHEST)
-                         + layer["b"])
-        return (jnp.einsum("on,nb->ob", params["mu"]["w"], x,
-                           precision=jax.lax.Precision.HIGHEST)
-                + params["mu"]["b"])
-
-    T = demands.shape[0] - 1
-    B = demands.shape[-1]
-    reset_fn, step_fn, obs_fn = make_supplychain_kernels(cc)
-
-    def run():
-        st = reset_fn(demands, leadtimes, B)
-
-        def body(carry, _):
-            st, obs = carry
-            a = jnp.tanh(forward_mu(params, obs))
-            st, out = step_fn(st, a)
-            return (st, out.obs), out.reward
-
-        (_, _), rews = jax.lax.scan(body, (st, obs_fn(st)), None, length=T)
-        return rews
-
-    return np.asarray(jax.jit(run)())
-
-
-def test_policy_rollout_pallas_linear():
-    """Fused policy-in-the-loop kernel (obs -> MLP -> tanh(mu) -> env step)
-    must match the scan-engine greedy evaluator."""
-    import gym_supplychain_tpu as sct
-    from gym_supplychain_tpu.models.policy import MLPConfig, init_actor_critic
-    from gym_supplychain_tpu.ops.supplychain_pallas import (
-        make_supplychain_policy_rollout_pallas)
-
-    T, B, hidden = 20, 8, (32, 32)
-    cc = sct.make("supplychain-linear-v0", total_time_steps=T).cc
-    params = init_actor_critic(
-        jax.random.PRNGKey(1), MLPConfig(cc.obs_dim, cc.A, hidden))
-    # non-degenerate mu head (default init scale 0.01 makes actions ~0)
-    params["mu"]["w"] = params["mu"]["w"] * 100
-    rs = np.random.RandomState(0)
-    demands = rs.randint(0, 20, size=(T + 1, cc.R, cc.P, B)).astype(np.float32)
-
-    run_policy = make_supplychain_policy_rollout_pallas(
-        cc, T, B, hidden=hidden, interpret=True)
-    pal = np.asarray(run_policy(demands, params))
-    ref = _greedy_scan_rewards(cc, params, jnp.asarray(demands))
-    np.testing.assert_allclose(pal, ref, rtol=0, atol=1e-4 * np.abs(ref).max())
-
-
-def test_policy_rollout_pallas_stochastic_ntom():
-    """Same fused kernel with stochastic lead-times on the N-to-M chain."""
-    import gym_supplychain_tpu as sct
-    from gym_supplychain_tpu.models.policy import MLPConfig, init_actor_critic
-    from gym_supplychain_tpu.ops.supplychain_pallas import (
-        make_supplychain_policy_rollout_pallas)
-
-    T, B, hidden = 15, 4, (16,)
-    cc = sct.make("supplychain-ntom-v0", total_time_steps=T).cc
-    params = init_actor_critic(
-        jax.random.PRNGKey(2), MLPConfig(cc.obs_dim, cc.A, hidden))
-    params["mu"]["w"] = params["mu"]["w"] * 100
-    rs = np.random.RandomState(3)
-    demands = rs.randint(0, 30, size=(T + 1, cc.R, cc.P, B)).astype(np.float32)
-    leadtimes = rs.randint(1, cc.Lmax + 1, size=(T, cc.K, B)).astype(np.int32)
-
-    run_policy = make_supplychain_policy_rollout_pallas(
-        cc, T, B, hidden=hidden, interpret=True)
-    pal = np.asarray(run_policy(demands, leadtimes, params))
-    ref = _greedy_scan_rewards(cc, params, jnp.asarray(demands),
-                               jnp.asarray(leadtimes))
-    np.testing.assert_allclose(pal, ref, rtol=0, atol=1e-4 * np.abs(ref).max())
+    scan_obs, scan_rewards = _beergame_scan(
+        L, W, lambda e: demand, lambda e: delays, actions, [12] * L)
+    obs, rew = make_beergame_collect_pallas(
+        W, L, B, delay=0, init_delay=2, batch_tile=4, interpret=True)(
+            demand, actions)
+    np.testing.assert_array_equal(np.asarray(rew), scan_rewards)
+    np.testing.assert_array_equal(np.asarray(obs), scan_obs)
 
 
 def test_beergame_collect_actions_matches_scan_two_episodes():
-    """'actions'-mode collect kernel: per-week obs + reward bit-equal to the
-    lax.scan kernel across an auto-reset boundary (2 back-to-back episodes)."""
-    from gym_supplychain_tpu.core.beergame import make_beergame_kernels
+    """Per-week obs + reward bit-equal to the lax.scan kernel across an
+    auto-reset boundary (2 back-to-back episodes)."""
     from gym_supplychain_tpu.ops.beergame_pallas import (
         make_beergame_collect_pallas)
 
@@ -286,71 +190,51 @@ def test_beergame_collect_actions_matches_scan_two_episodes():
     rs = np.random.RandomState(2)
     demand = np.array([4] * 4 + [8] * (W - 4), np.int32)
     actions = rs.randint(0, 16, size=(E * W, L, B)).astype(np.int32)
-
-    reset_fn, step_fn, obs_fn = make_beergame_kernels(L, W, 2, itype=jnp.int32)
-    delays = np.full(W + 1, 2, np.int32)
-    step = jax.jit(step_fn)
-    scan_obs, scan_rew = [], []
-    for e in range(E):
-        st = reset_fn(demand, delays, [12] * L, 4, 4, B)
-        for w in range(W):
-            st, (o, r, _) = step(st, actions[e * W + w])
-            scan_obs.append(np.asarray(o))
-            scan_rew.append(np.asarray(r))
-
-    run = make_beergame_collect_pallas(W, L, B, episodes=E, mode="actions",
-                                       interpret=True)
-    obs, rew = run(demand, actions)
-    np.testing.assert_array_equal(np.asarray(obs), np.stack(scan_obs))
-    np.testing.assert_array_equal(np.asarray(rew), np.stack(scan_rew))
+    scan_obs, scan_rew = _beergame_scan(
+        L, W, lambda e: demand, lambda e: np.full(W + 1, 2, np.int32),
+        actions, [12] * L, episodes=E)
+    obs, rew = make_beergame_collect_pallas(
+        W, L, B, episodes=E, batch_tile=8, interpret=True)(demand, actions)
+    np.testing.assert_array_equal(np.asarray(obs), scan_obs)
+    np.testing.assert_array_equal(np.asarray(rew), scan_rew)
 
 
 def test_beergame_collect_v2_stochastic_matches_scan():
-    """VERDICT r3 item 6: v2 collect kernel (orders = action verbatim,
-    capacity penalty, offset obs) with PER-LANE stochastic delay tables —
-    per-week obs + reward bit-equal to the lax.scan kernel across an
-    auto-reset boundary, including zero-delay weeks (immediate delivery)."""
-    from gym_supplychain_tpu.core.beergame import make_beergame_kernels
+    """v2 collect kernel (orders = action verbatim, capacity penalty, offset
+    obs) with PER-LANE stochastic delay tables — per-week obs + reward
+    bit-equal to the lax.scan kernel across an auto-reset boundary,
+    including zero-delay weeks (immediate delivery)."""
     from gym_supplychain_tpu.ops.beergame_pallas import (
         make_beergame_collect_pallas)
 
     W, L, B, E = 20, 4, 8, 2
     MAXD, MS, PEN = 3, 25, 37
     rs = np.random.RandomState(5)
-    # per-episode per-lane stochastic tables, incl. delay 0 outcomes
     demand = rs.randint(0, 12, size=(E * W, B)).astype(np.int32)
     delays = rs.randint(0, MAXD + 1, size=(E * W, B)).astype(np.int32)
     actions = rs.randint(0, 16, size=(E * W, L, B)).astype(np.int32)
 
-    reset_fn, step_fn, obs_fn = make_beergame_kernels(
-        L, W, max(MAXD, 2), v2=True, max_stock=MS,
-        exceeded_capacity_penalty=PEN, itype=jnp.int32)
-    step = jax.jit(step_fn)
-    scan_obs, scan_rew = [], []
-    for e in range(E):
-        # scan-kernel convention: delays table has the prepended initial
-        # delay 2 at slot 0 (beergame2_env.py:50), weeks at slots 1..W
-        dtab = np.concatenate([np.full((1, B), 2, np.int32),
+    # scan-kernel convention: delays table has the prepended initial delay
+    # 2 at slot 0 (beergame2_env.py:50), weeks at slots 1..W
+    def dtab(e):
+        return np.concatenate([np.full((1, B), 2, np.int32),
                                delays[e * W:(e + 1) * W]])
-        st = reset_fn(demand[e * W:(e + 1) * W], dtab, [12] * L, 4, 4, B)
-        for w in range(W):
-            st, (o, r, _) = step(st, actions[e * W + w])
-            scan_obs.append(np.asarray(o))
-            scan_rew.append(np.asarray(r))
 
-    run = make_beergame_collect_pallas(
-        W, L, B, episodes=E, mode="actions", delay=None, max_delay=MAXD,
-        v2=True, max_stock=MS, exceeded_capacity_penalty=PEN,
-        interpret=True)
-    obs, rew = run(demand, delays, actions)
-    np.testing.assert_array_equal(np.asarray(obs), np.stack(scan_obs))
-    np.testing.assert_array_equal(np.asarray(rew), np.stack(scan_rew))
+    scan_obs, scan_rew = _beergame_scan(
+        L, W, lambda e: demand[e * W:(e + 1) * W], dtab, actions, [12] * L,
+        max_delay=max(MAXD, 2), episodes=E, v2=True, max_stock=MS,
+        exceeded_capacity_penalty=PEN)
+    obs, rew = make_beergame_collect_pallas(
+        W, L, B, episodes=E, delay=None, max_delay=MAXD, v2=True,
+        max_stock=MS, exceeded_capacity_penalty=PEN, batch_tile=4,
+        interpret=True)(demand, delays, actions)
+    np.testing.assert_array_equal(np.asarray(obs), scan_obs)
+    np.testing.assert_array_equal(np.asarray(rew), scan_rew)
 
 
 def test_beergame_collect_v2_scalar_delay_matches_scan():
     """v2 flags with a constant scalar delay: the penalty/obs/orders
     changes alone, bit-equal to the scan kernel."""
-    from gym_supplychain_tpu.core.beergame import make_beergame_kernels
     from gym_supplychain_tpu.ops.beergame_pallas import (
         make_beergame_collect_pallas)
 
@@ -359,55 +243,21 @@ def test_beergame_collect_v2_scalar_delay_matches_scan():
     rs = np.random.RandomState(9)
     demand = np.array([4] * 4 + [8] * (W - 4), np.int32)
     actions = rs.randint(0, 16, size=(W, L, B)).astype(np.int32)
-    reset_fn, step_fn, _ = make_beergame_kernels(
-        L, W, 2, v2=True, max_stock=MS, exceeded_capacity_penalty=PEN,
-        itype=jnp.int32)
-    delays = np.full(W + 1, 2, np.int32)
-    st = reset_fn(demand, delays, [12] * L, 4, 4, B)
-    step = jax.jit(step_fn)
-    scan_obs, scan_rew = [], []
-    for w in range(W):
-        st, (o, r, _) = step(st, actions[w])
-        scan_obs.append(np.asarray(o))
-        scan_rew.append(np.asarray(r))
-    run = make_beergame_collect_pallas(
-        W, L, B, episodes=1, mode="actions", v2=True, max_stock=MS,
-        exceeded_capacity_penalty=PEN, interpret=True)
-    obs, rew = run(demand, actions)
-    np.testing.assert_array_equal(np.asarray(obs), np.stack(scan_obs))
-    np.testing.assert_array_equal(np.asarray(rew), np.stack(scan_rew))
-
-
-def test_beergame_collect_random_smoke():
-    """'random' mode needs the TPU PRNG primitives (no CPU interpret
-    lowering, like the supply-chain PRNG collect modes); compiled smoke +
-    timing runs in bench.py on the real chip."""
-    import pytest
-    if jax.devices()[0].platform != "tpu":
-        pytest.skip("on-chip PRNG requires a TPU")
-    from gym_supplychain_tpu.ops.beergame_pallas import (
-        make_beergame_collect_pallas)
-
-    W, L, B, E = 12, 4, 128, 2
-    demand = np.array([4] * 4 + [8] * (W - 4), np.int32)
-    run = make_beergame_collect_pallas(W, L, B, episodes=E, mode="random")
-    obs, rew = run(demand, 0)
-    obs2, rew2 = run(demand, 1)
-    assert obs.shape == (E * W, L, B) and rew.shape == (E * W, B)
-    assert obs.dtype == jnp.int32 and rew.dtype == jnp.int32
-    assert np.all(np.asarray(rew) <= 0)
-    assert not np.array_equal(np.asarray(rew), np.asarray(rew2))
-    # auto-reset: week-0 rows of both episodes start from identical state,
-    # so the obs distribution across episodes matches at week 0 given the
-    # same action stream would -- with PRNG actions just check finiteness
-    assert np.isfinite(np.asarray(obs)).all()
+    scan_obs, scan_rew = _beergame_scan(
+        L, W, lambda e: demand, lambda e: np.full(W + 1, 2, np.int32),
+        actions, [12] * L, v2=True, max_stock=MS,
+        exceeded_capacity_penalty=PEN)
+    obs, rew = make_beergame_collect_pallas(
+        W, L, B, v2=True, max_stock=MS, exceeded_capacity_penalty=PEN,
+        batch_tile=8, interpret=True)(demand, actions)
+    np.testing.assert_array_equal(np.asarray(obs), scan_obs)
+    np.testing.assert_array_equal(np.asarray(rew), scan_rew)
 
 
 def test_beergame_collect_batch_tile_matches_untiled():
-    """Lane-tiled beergame collect grid (batch_tile, VERDICT r4
-    missing-1): bit-exact vs the untiled kernel in 'actions' mode, for
-    both the v0 constant-delay and the v2 per-lane stochastic-delay
-    variants."""
+    """Lane tiles are independent programs: 4-lane tiles reproduce one
+    16-lane tile bit for bit, for both the v0 constant-delay and the v2
+    per-lane stochastic-delay variants."""
     from gym_supplychain_tpu.ops.beergame_pallas import (
         make_beergame_collect_pallas)
 
@@ -416,21 +266,22 @@ def test_beergame_collect_batch_tile_matches_untiled():
     acts = jax.random.randint(jax.random.PRNGKey(0), (E * weeks, L, B),
                               0, 16, jnp.int32)
 
-    kw = dict(episodes=E, mode="actions", interpret=True)
-    o1, w1 = make_beergame_collect_pallas(weeks, L, B, **kw)(demand, acts)
+    kw = dict(episodes=E, interpret=True)
+    o1, w1 = make_beergame_collect_pallas(weeks, L, B, batch_tile=16,
+                                          **kw)(demand, acts)
     o2, w2 = make_beergame_collect_pallas(weeks, L, B, batch_tile=4,
                                           **kw)(demand, acts)
     np.testing.assert_array_equal(np.asarray(o1), np.asarray(o2))
     np.testing.assert_array_equal(np.asarray(w1), np.asarray(w2))
 
-    kw2 = dict(episodes=E, mode="actions", delay=None, max_delay=3,
-               v2=True, max_stock=100, exceeded_capacity_penalty=100,
-               interpret=True)
+    kw2 = dict(episodes=E, delay=None, max_delay=3, v2=True, max_stock=100,
+               exceeded_capacity_penalty=100, interpret=True)
     k = jax.random.PRNGKey(1)
     dem = jax.random.randint(k, (E * weeks, B), 0, 12, jnp.int32)
     dly = jax.random.randint(jax.random.fold_in(k, 1), (E * weeks, B),
                              0, 4, jnp.int32)
-    o3, w3 = make_beergame_collect_pallas(weeks, L, B, **kw2)(dem, dly, acts)
+    o3, w3 = make_beergame_collect_pallas(weeks, L, B, batch_tile=16,
+                                          **kw2)(dem, dly, acts)
     o4, w4 = make_beergame_collect_pallas(weeks, L, B, batch_tile=4,
                                           **kw2)(dem, dly, acts)
     np.testing.assert_array_equal(np.asarray(o3), np.asarray(o4))

@@ -29,7 +29,7 @@ def _load_reference():
     return importlib.import_module("gym_supplychain.envs")
 
 
-def _compare(ref_env, tpu_env, seed, episodes=1, obs_atol=5e-7):
+def _compare(ref_env, our_env, seed, episodes=1, obs_atol=5e-7):
     """Step-by-step comparison.  Tolerances: the reference's float32 action
     arithmetic leaks into its cost bookkeeping whenever a node ships while
     exactly at stock capacity (min(int_capacity, stock) returns the Python
@@ -41,30 +41,30 @@ def _compare(ref_env, tpu_env, seed, episodes=1, obs_atol=5e-7):
     across full episodes).  Any semantic bug produces O(1) divergence, far
     above these tolerances."""
     ref_env.seed(seed)
-    tpu_env.seed(seed)
+    our_env.seed(seed)
     for _ in range(episodes):
         ref_obs = ref_env.reset()
-        tpu_obs = tpu_env.reset()
-        np.testing.assert_allclose(tpu_obs, ref_obs, atol=obs_atol,
+        our_obs = our_env.reset()
+        np.testing.assert_allclose(our_obs, ref_obs, atol=obs_atol,
                                    err_msg="reset obs")
         done = False
         t = 0
-        ref_total = tpu_total = 0.0
+        ref_total = our_total = 0.0
         while not done:
             t += 1
             a = ref_env.action_space.sample()
-            a2 = tpu_env.action_space.sample()
+            a2 = our_env.action_space.sample()
             np.testing.assert_array_equal(a, a2)
             ref_obs, ref_r, done, _ = ref_env.step(a)
-            tpu_obs, tpu_r, done2, _ = tpu_env.step(a)
+            our_obs, our_r, done2, _ = our_env.step(a)
             assert done == done2
-            np.testing.assert_allclose(tpu_obs, ref_obs, atol=obs_atol,
+            np.testing.assert_allclose(our_obs, ref_obs, atol=obs_atol,
                                        err_msg=f"obs at t={t}")
-            assert np.allclose(tpu_r, ref_r, rtol=1e-6, atol=1e-2), \
-                (t, tpu_r, ref_r)
+            assert np.allclose(our_r, ref_r, rtol=1e-6, atol=1e-2), \
+                (t, our_r, ref_r)
             ref_total += ref_r
-            tpu_total += tpu_r
-        assert np.allclose(ref_total, tpu_total)
+            our_total += our_r
+        assert np.allclose(ref_total, our_total)
 
 
 def test_2perstage_stochastic_leadtimes_trajectory():
@@ -88,9 +88,9 @@ def test_ntom_stochastic_trajectory():
         exceeded_ship_capacity_cost=10, processing_ratio=3,
         stochastic_leadtimes=True, avg_leadtime=2, max_leadtime=4,
         total_time_steps=60)
-    tpu = SupplyChainNtoMEnv(total_time_steps=60, strict_obs=True)
+    ours = SupplyChainNtoMEnv(total_time_steps=60, strict_obs=True)
     # align penalty costs with the ref construction above
-    _compare(ref, tpu, seed=3, episodes=2)
+    _compare(ref, ours, seed=3, episodes=2)
 
 
 def test_multiproduct_trajectory_constant_leadtimes():
@@ -123,8 +123,8 @@ def test_partial_supply_products_trajectory():
     kw = dict(num_products=2, demand_range=(0, 8), stochastic_leadtimes=True,
               avg_leadtime=2, max_leadtime=4, total_time_steps=30)
     ref = envs.SupplyChainEnv(dict(nodes), **kw)
-    tpu = SupplyChainEnv(dict(nodes), strict_obs=True, **kw)
-    _compare(ref, tpu, seed=2, episodes=2)
+    ours = SupplyChainEnv(dict(nodes), strict_obs=True, **kw)
+    _compare(ref, ours, seed=2, episodes=2)
 
 
 def test_seasonal_2perstage_stochastic_leadtimes_trajectory():
@@ -135,8 +135,8 @@ def test_seasonal_2perstage_stochastic_leadtimes_trajectory():
     kw = dict(stochastic_leadtimes=True, avg_leadtime=2, max_leadtime=4,
               total_time_steps=40)
     ref = envs.SupplyChain2perStageSeasonalEnv(**kw)
-    tpu = SupplyChain2perStageSeasonalEnv(strict_obs=True, **kw)
-    _compare(ref, tpu, seed=4, episodes=2)
+    ours = SupplyChain2perStageSeasonalEnv(strict_obs=True, **kw)
+    _compare(ref, ours, seed=4, episodes=2)
 
 
 def test_demconfigbyprod_trajectory():
@@ -148,8 +148,8 @@ def test_demconfigbyprod_trajectory():
     from gym_supplychain_tpu import SupplyChainMultiProduct_DemConfigByProd
     kw = dict(num_products=3, total_time_steps=40)
     ref = envs.SupplyChainMultiProduct_DemConfigByProd(**kw)
-    tpu = SupplyChainMultiProduct_DemConfigByProd(strict_obs=True, **kw)
-    _compare(ref, tpu, seed=5, episodes=2)
+    ours = SupplyChainMultiProduct_DemConfigByProd(strict_obs=True, **kw)
+    _compare(ref, ours, seed=5, episodes=2)
 
 
 def test_nperstage_trajectory():
@@ -160,8 +160,8 @@ def test_nperstage_trajectory():
     kw = dict(nodes_per_echelon=[3, 2, 3, 5], total_time_steps=30,
               stochastic_leadtimes=True, avg_leadtime=2, max_leadtime=4)
     ref = envs.SupplyChainNPerStage(**kw)
-    tpu = SupplyChainNPerStage(strict_obs=True, **kw)
-    _compare(ref, tpu, seed=6, episodes=2)
+    ours = SupplyChainNPerStage(strict_obs=True, **kw)
+    _compare(ref, ours, seed=6, episodes=2)
 
 
 def test_heap_quirk_manifests():

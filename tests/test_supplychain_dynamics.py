@@ -1,5 +1,5 @@
 """Ports of the reference's hand-computed step-dynamics tests
-(test_supplychain_env.py) against the TPU engine in float64 parity mode.
+(test_supplychain_env.py) against this engine in float64 parity mode.
 
 Heap-content assertions become dense pipeline-bucket assertions (amounts
 aggregated per arrival time); arrival/cost dynamics are identical (SURVEY.md

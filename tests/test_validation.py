@@ -72,3 +72,15 @@ def test_processing_capacity_without_cost_raises():
     with pytest.raises(ValueError):
         SupplyChainEnv(_nodes(processing_capacity=100), demand_range=(0, 10),
                        total_time_steps=5)
+
+
+@pytest.mark.parametrize("over", [dict(ship_capacity=[-1]),
+                                  dict(processing_capacity=-5,
+                                       processing_cost=1)],
+                         ids=["ship_capacity", "processing_capacity"])
+def test_negative_capacity_raises(over):
+    """Negative capacities have no meaning upstream, and the collect
+    kernel's one-product ship clip relies on cap >= 0."""
+    with pytest.raises(ValueError, match=">= 0"):
+        SupplyChainEnv(_nodes(**over), demand_range=(0, 10),
+                       total_time_steps=5)
